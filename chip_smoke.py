@@ -4,15 +4,19 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py              # what the checks need
-    python3 chip_smoke.py --profile    # plus one request under torch.profiler
+    python3 chip_smoke.py --profile    # plus one request and one training
+                                       # micro-step under torch.profiler
 
 It builds the CUDA kernels from ``rag_snvbert_tpu_torch/csrc`` (one nvcc
-per source, started together), holds each kernel against its plain
-PyTorch version at the serving shapes, then serves two imputation requests
-through ``ImputationService`` at the full ``tpu_default`` width (384d, 12
-layers, 3 heads of 128, L = 1030, a 2048-row window context, batch 32)
-with seeded random weights, and checks the answers.  It prints one JSON
-line of per-kernel numbers, the card's name and power limit, and last
+per source, started together) and holds each kernel against its plain
+PyTorch version at the main path's shapes.  Then it drives the two main
+paths at the full ``tpu_default`` width (384d, 12 layers, 3 heads of 128,
+L = 1030, a 2048-row window context) with seeded random weights: it serves
+two imputation requests through ``ImputationService`` (batch 32), and it
+trains one epoch through ``Trainer.fit`` (batch 24, gradient accumulation
+2: four micro-steps, two updates, validation, a checkpoint and a restore),
+and checks the answers and the launch counts of each path.  It prints one
+JSON line of per-kernel numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 that line; so does a machine without CUDA or a directory without the
 package.  Imports nothing of JAX or of the JAX package.
@@ -22,6 +26,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -36,6 +43,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
 ATTN_SHAPE = (64, 3, 1030, 128)        # [2B, H, L, hd] at batch 32
+BWD_SHAPE = (48, 3, 1030, 128)         # [2B, H, L, hd] at training batch 24
 L2_B, L2_N, L2_D = 64, 2048, 1030 * 384
 L2_PAD_ROWS = 40
 # Attention: the kernel rounds P to bf16 for the P.V product and writes O
@@ -50,6 +58,24 @@ L2_REL_TOL = 2e-4
 # move imputed probabilities by ~1e-3 on average, ~1e-2 at most.
 PROB_MEAN_TOL = 5e-3
 PROB_MAX_TOL = 0.05
+# Attention backward vs its plain version (float32 from the same bf16
+# inputs, the kernel's own O and LSE): the kernel rounds P and dS to bf16
+# as product operands and writes bf16 (2^-9 relative each), so each of
+# dq, dk, dv holds to 2^-6 of its largest entry.  The LSE is float32 on
+# both sides, summed in other orders: 1e-5 of its largest entry.
+BWD_REL_TOL = 2 ** -6
+LSE_REL_TOL = 1e-5
+# Training, kernel path vs plain path on the card (same weights, same
+# batch, dropout off; the plain path takes attention in float32 scores,
+# the kernels' plain arithmetic, where the kernels round P and dS to bf16):
+# bf16 roundings 12 layers deep.  The loss holds to 1e-3 relative; each
+# parameter's gradient to 5% relative L2, measured against the larger of
+# its own norm and 1e-3 of the whole gradient's (the key biases' gradients
+# vanish in exact arithmetic, so both sides hold rounding noise there).
+# Observed on an H100: loss 1.8e-5, worst gradient 7.3e-3.
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = 0.05
+TRAIN_DIR = "runs/chip_smoke_train"     # inside the checkout (.gitignore)
 
 
 def fail(msg: str) -> None:
@@ -120,6 +146,67 @@ def phase_attention(gen) -> dict:
             "source": "rag_snvbert_tpu_torch/csrc/attention.cu",
             "replaces": "rag_snvbert_tpu/models/transformer.py:99",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_attention_bwd(gen) -> dict:
+    import torch.nn.functional as F
+
+    from rag_snvbert_tpu_torch.ops.attention import (
+        attention_bwd, attention_bwd_plain, attention_fwd, attention_fwd_plain)
+
+    q, k, v, do = (torch.randn(BWD_SHAPE, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = BWD_SHAPE[-1] ** -0.5
+    out, lse = attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    _, ref_lse = attention_fwd_plain(q, k, v, scale)
+    lse_err = (lse - ref_lse).abs().max().item()
+    lse_tol = LSE_REL_TOL * ref_lse.abs().max().item()
+    print(f"attention lse {list(BWD_SHAPE)}: max_abs_err {lse_err:.3e} "
+          f"(tol {lse_tol:.3e})")
+    check(lse_err <= lse_tol, "attention forward LSE disagrees with plain")
+    got = attention_bwd(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    want = attention_bwd_plain(*(x.float() for x in (q, k, v, out)), lse,
+                               do.float(), scale)
+    max_err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a.float() - b).abs().max().item()
+        ref = b.abs().max().item()
+        max_err = max(max_err, err)
+        ok = bool(torch.isfinite(a).all()) and err <= BWD_REL_TOL * ref
+        print(f"attention_bwd {name}: max_abs_err {err:.3e}, max|ref| "
+              f"{ref:.3e} (tol {BWD_REL_TOL * ref:.3e}), finite "
+              f"{bool(torch.isfinite(a).all())}")
+        check(ok, f"attention_bwd kernel disagrees with plain ({name})")
+    again = attention_bwd(q, k, v, out, lse, do, scale)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "attention_bwd runs are not bit-identical")
+    del want, again
+    ms = time_ms(lambda: attention_bwd(q, k, v, out, lse, do, scale), 20)
+    plain_ms = time_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do,
+                                                   scale), 3, 1)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, scale=scale)
+        torch.autograd.grad(o, leaves, do)
+
+    lib_ms = time_ms(sdpa_fwd_bwd, 20) - time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+    b, h, l, hd = BWD_SHAPE
+    # q, k, v, o, dO in and dq, dk, dv out (bf16), the LSE in (fp32); the
+    # five products of the function: 10 * BH * L^2 * hd.
+    b_ms, by = bound(8 * b * h * l * hd * 2 + b * h * l * 4,
+                     10 * b * h * l * l * hd)
+    print(f"attention_bwd: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms:.4f} (scaled_dot_product_attention fwd+bwd "
+          f"minus fwd) bound_ms {b_ms:.4f} ({by})")
+    return {"name": "attention_bwd", "route": "cuda",
+            "source": "rag_snvbert_tpu_torch/csrc/attention_bwd.cu",
+            "replaces": "rag_snvbert_tpu/models/transformer.py:141",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
 
 
@@ -263,7 +350,7 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * batches * len(targets),
-            "l2_topk": batches * len(targets)}
+            "attention_bwd": 0, "l2_topk": batches * len(targets)}
     print(f"launches {counts} (expected {want}: {n_win} windows x "
           f"{batches // n_win} batches x {len(targets)} requests); peak "
           f"device memory {peak_gb:.2f} GB")
@@ -315,6 +402,235 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
     return counts
 
 
+def _set_dropout(model, rate: float) -> None:
+    from rag_snvbert_tpu_torch.models.layers import Dropout
+
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.rate = rate
+
+
+def _grads_of_one_batch(model, batch, ctx_of, use_kernel: bool):
+    """Loss and every parameter's gradient of one batch in train mode with
+    dropout off."""
+    from rag_snvbert_tpu_torch.train import step
+
+    _set_dropout(model, 0.0)
+    model.train()
+    ctx = ctx_of(model)
+    loss, _, _ = step._forward(model, batch, ctx,
+                               step.StepConfig(use_kernel=use_kernel))
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad()
+    return loss.item(), grads
+
+
+def phase_training(profile: bool = False) -> dict[str, int]:
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.data.pipeline import WindowDataset
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.train import step
+    from rag_snvbert_tpu_torch.train.retrieval import encode_window_refs
+    from rag_snvbert_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = PRESETS["tpu_default"]
+    m = cfg.model
+    t0 = time.perf_counter()
+    bundle = make_bundle(n_train_samples=48, n_ref_samples=1004,
+                         n_sites=2 * 1020, n_windows=2, seed=23)
+    ds = WindowDataset(bundle.train, bundle.panel, bundle.freq,
+                       bundle.window.window_info, bundle.vocab,
+                       ref_vcf=bundle.ref, seq_len=m.seq_len)
+    print(f"training panel: {bundle.ref.n_samples * 2} reference haplotypes "
+          f"(context padded to 2048), {ds.n_windows} windows of "
+          f"{[w.n_sites for w in ds.windows]} sites, "
+          f"{bundle.train.n_samples} training samples "
+          f"({time.perf_counter() - t0:.2f} s to generate)")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    tcfg = TrainerConfig(
+        epochs=1, batch_size=cfg.batch_size, val_batch_size=cfg.val_batch_size,
+        init_lr=cfg.init_lr, max_lr=cfg.max_lr, warmup_steps=cfg.warmup_steps,
+        grad_accum_steps=cfg.grad_accum_steps, focal_gamma=cfg.focal_gamma,
+        rag_k=cfg.rag_k, ref_pad_haps=2048, output_dir=TRAIN_DIR,
+        log_freq=1, seed=0)
+    trainer = Trainer(build_model(cfg, bundle.vocab.size, seed=0), ds, tcfg,
+                      val_ds=ds)
+    micro = ds.n_windows * -(-ds.n_samples // tcfg.batch_size)
+    val_steps = ds.n_windows * -(-ds.n_samples // tcfg.val_batch_size)
+
+    # (ii) parameters change at every update and at no other micro-step
+    opt = trainer.optimizer
+    plain_step, changed = opt.step, []
+
+    def checked_step():
+        before = [p.detach().clone() for p in opt.params]
+        applied = plain_step()
+        moved = sum(not torch.equal(b, p) for b, p in zip(before, opt.params))
+        changed.append((applied, moved))
+        return applied
+
+    opt.step = checked_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    opt.step = plain_step
+    peak_fit = torch.cuda.max_memory_allocated() / 1e9
+    want = {"attention": m.n_layers * (micro + val_steps),
+            "attention_bwd": m.n_layers * micro,
+            "l2_topk": micro + val_steps}
+    print(f"fit: {fit_s:.2f} s for {micro} micro-steps ({opt.count} updates) "
+          f"+ {val_steps} validation steps + a checkpoint; launches {counts} "
+          f"(expected {want}); peak device memory {peak_fit:.2f} GB")
+    check(counts == want, "training did not go through every kernel")
+    row = result["history"][0]
+    print("epoch 0: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                                  if isinstance(v, float)))
+    check(all(np.isfinite(row[k]) for k in ("train_loss", "train_hap_loss",
+                                            "train_gt_loss", "val_loss")),
+          "training loss is not finite")
+    check(0.0 <= row["val_hap_f1"] <= 1.0, "val_hap_f1 outside [0, 1]")
+    n_params = len(opt.params)
+    print(f"parameter tensors moved per micro-step (of {n_params}): "
+          f"{[(a, n) for a, n in changed]}")
+    check(opt.count == micro // tcfg.grad_accum_steps
+          and [a for a, _ in changed] == [False, True] * (micro // 2),
+          "updates were not applied every second micro-step")
+    check(all((n >= 0.95 * n_params) if a else n == 0 for a, n in changed),
+          "parameters did not move at an update, or moved between updates")
+
+    # (iv) the checkpoint restores exactly into a fresh trainer
+    fresh = Trainer(build_model(cfg, bundle.vocab.size, seed=1), ds, tcfg)
+    fresh.restore_checkpoint(os.path.join(TRAIN_DIR, "ckpt_ep0"))
+    same = all(torch.equal(fresh.model.state_dict()[k], v)
+               for k, v in trainer.model.state_dict().items())
+    a, b = opt.state_dict(), fresh.optimizer.state_dict()
+    same_opt = (a["count"], a["mini_step"]) == (b["count"], b["mini_step"]) \
+        and all(torch.equal(a[key][n], b[key][n])
+                for key in ("mu", "nu", "acc") for n in a[key])
+    print(f"restore: params equal {same}, optimizer state equal {same_opt}, "
+          f"step {fresh.step} epoch {fresh.start_epoch} level {fresh.level}")
+    check(same and same_opt and fresh.step == trainer.step
+          and (fresh.start_epoch, fresh.level) == (1, 0)
+          and dataclasses.asdict(fresh.stopper)
+          == dataclasses.asdict(trainer.stopper),
+          "checkpoint round trip is not exact")
+    del fresh
+
+    # Warm micro-steps on one batch, each timed to a synchronize; with
+    # accumulation 2 they alternate between accumulate-only and update.
+    meta = ds.windows[0]
+    batch = trainer._put_batch(ds.make_batch(
+        meta, np.arange(tcfg.batch_size), 0, 0, packed=True))
+    ctx = trainer._window_ctx(ds, meta, 0, 0)
+    times = {False: [], True: []}
+    for i in range(9):
+        gen = step.step_generator(0, 1000 + i, trainer.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step.train_step(trainer.model, opt, batch, ctx, trainer.step_cfg, gen)
+        torch.cuda.synchronize()
+        if i:                                # the first one warms up
+            times[opt.mini_step == 0].append(time.perf_counter() - t)
+    acc_ms, upd_ms = (statistics.median(times[k]) * 1e3 for k in (False,
+                                                                    True))
+    mean_s = statistics.mean(times[False] + times[True])
+    print(f"warm micro-step (batch {tcfg.batch_size}, L {m.seq_len}, one "
+          f"window of a 2048-row context): accumulate-only median "
+          f"{acc_ms:.1f} ms {[round(x * 1e3, 1) for x in times[False]]}, "
+          f"with the update median {upd_ms:.1f} ms "
+          f"{[round(x * 1e3, 1) for x in times[True]]}; mean "
+          f"{mean_s * 1e3:.1f} ms, {tcfg.batch_size / mean_s:.1f} training "
+          f"samples/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if profile:
+        profile_train_steps(trainer, opt, batch, ctx)
+
+    # (iii) one batch, dropout off: the kernel path against the plain path
+    # on the card (same weights: attention in plain torch math with float32
+    # scores, the plain search; no kernel launches).
+    state = trainer.model.state_dict()
+    del trainer, opt
+    torch.cuda.empty_cache()
+    plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        m, flash_attention=False, score_bf16=False))
+
+    def ctx_of(model):
+        model.eval()
+        toks, af, valid = (torch.from_numpy(x).cuda() for x in
+                           ds.window_ref_tokens(meta, pad_haps_to=2048))
+        wmask = torch.from_numpy(ds.window_mask(meta, 0, 0)).cuda()
+        return encode_window_refs(model.embed, toks.long(), af, wmask,
+                                  valid=valid)
+
+    model = build_model(cfg, bundle.vocab.size, seed=0)
+    model.load_state_dict(state)
+    ops.reset_launches()
+    k_loss, k_grads = _grads_of_one_batch(model, batch, ctx_of, True)
+    one = ops.launch_counts()
+    check(one == {"attention": m.n_layers, "attention_bwd": m.n_layers,
+                  "l2_topk": 1}, f"kernel path launches {one}")
+    del model
+    model = build_model(plain_cfg, bundle.vocab.size, seed=0)
+    model.load_state_dict(state)
+    ops.reset_launches()
+    p_loss, p_grads = _grads_of_one_batch(model, batch, ctx_of, False)
+    check(ops.launch_counts() == {"attention": 0, "attention_bwd": 0,
+                                  "l2_topk": 0},
+          "the plain path launched a kernel")
+    total = torch.sqrt(sum((g.double() ** 2).sum()
+                           for g in p_grads.values())).item()
+    rels = {}
+    for name, g in p_grads.items():
+        denom = max(g.norm().item(), 1e-3 * total)
+        rels[name] = (k_grads[name] - g).norm().item() / denom
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    print(f"one batch, dropout off, kernel vs plain path on the card: loss "
+          f"{k_loss:.4f} vs {p_loss:.4f} (rel {loss_rel:.2e}, tol "
+          f"{TRAIN_LOSS_TOL}); gradient rel L2 median "
+          f"{statistics.median(rels.values()):.2e}, worst "
+          + ", ".join(f"{n} {r:.2e}" for n, r in worst)
+          + f" (tol {TRAIN_GRAD_TOL})")
+    check(loss_rel <= TRAIN_LOSS_TOL and max(rels.values()) <= TRAIN_GRAD_TOL
+          and all(bool(torch.isfinite(g).all()) for g in k_grads.values()),
+          "training gradients disagree with the plain path")
+    return counts
+
+
+def profile_train_steps(trainer, opt, batch, ctx) -> None:
+    """Two more micro-steps under torch.profiler, one accumulate-only and
+    one with the optimizer update: device time by kernel and the device's
+    busy share of their wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_snvbert_tpu_torch.train import step
+
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(2):
+            gen = step.step_generator(0, 2000 + i, trainer.device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step.train_step(trainer.model, opt, batch, ctx, trainer.step_cfg,
+                            gen)
+            torch.cuda.synchronize()
+            walls.append(((time.perf_counter() - t) * 1e3,
+                          "update" if opt.mini_step == 0 else "accumulate"))
+    print("profiled micro-steps: "
+          + ", ".join(f"{ms:.1f} ms ({kind})" for ms, kind in walls))
+    _print_profile("two training micro-steps", prof,
+                   sum(ms for ms, _ in walls))
+
+
 def profile_request(svc, target) -> None:
     """One more request under torch.profiler: device time by kernel and the
     device's busy share of the request's wall time."""
@@ -327,13 +643,17 @@ def profile_request(svc, target) -> None:
         svc.handle_target(target)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    _print_profile("request", prof, wall_ms)
+
+
+def _print_profile(what: str, prof, wall_ms: float) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"profile: request wall {wall_ms:.1f} ms, device kernels "
+    print(f"profile: {what} wall {wall_ms:.1f} ms, device kernels "
           f"{busy_ms:.1f} ms, device idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:100]}")
 
@@ -361,16 +681,28 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    profile = "--profile" in sys.argv[1:]
     kernels = [phase_attention(gen)]
+    torch.cuda.empty_cache()
+    kernels.append(phase_attention_bwd(gen))
     torch.cuda.empty_cache()
     kernels.append(phase_l2(gen))
     torch.cuda.empty_cache()
-    counts = phase_serving(profile="--profile" in sys.argv[1:])
+    t = time.perf_counter()
+    paths = {"serving": phase_serving(profile)}
+    print(f"serving phase {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    paths["training"] = phase_training(profile)
+    print(f"training phase {time.perf_counter() - t:.1f} s")
     for kern in kernels:
-        kern["launches"] = counts[kern["name"]]
+        by_path = {p: c[kern["name"]] for p, c in paths.items()}
+        kern["launches"] = sum(by_path.values())
+        kern["launches_by_path"] = by_path
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
     print(card)

@@ -6,6 +6,13 @@
 // the output is bf16 in the same layout.  Scores, the running max, the
 // running sum and the accumulator are fp32.
 //
+// LSE: when the caller passes an ``lse`` pointer (fp32 [B*H, L], training),
+// the kernel also writes each valid row's log-sum-exp IN BASE 2 of the
+// scaled scores: lse[r] = log2(sum_j 2^(s_rj * scale * log2(e))), i.e. the
+// natural log-sum-exp of s*scale times log2(e).  The backward kernel
+// (attention_bwd.cu) recomputes P = exp2(s*scale*log2(e) - lse) from it.
+// With a null pointer (serving) nothing more is written.
+//
 // Differences from the TPU kernel, on purpose:
 //   * L runs ragged (1030 on the serving path): the last key tile and the
 //     last query tile are masked here, instead of padding to the TPU block
@@ -87,7 +94,8 @@ __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int L, float scale_log2) {
+                     __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int L, float scale_log2) {
   constexpr int LD = HD + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -206,6 +214,11 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   l1 += __shfl_xor_sync(0xffffffff, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int row0 = q0 + r, row1 = row0 + 8;
+  if (lse != nullptr && t == 0) {
+    // m is the row max in the log2 domain, l the sum of exp2(s - m).
+    if (row0 < L) lse[(size_t)blockIdx.y * L + row0] = m0 + log2f(l0);
+    if (row1 < L) lse[(size_t)blockIdx.y * L + row1] = m1 + log2f(l1);
+  }
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) {
     const int c = i * 8 + t * 2;
@@ -221,8 +234,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int L, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int L, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(kBlockQ + 2 * kBlockK) * (HD + kPad) *
                       sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
@@ -234,22 +247,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      L, scale * 1.4426950408889634f);
+      lse, L, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: bf16 [bh, L, hd] contiguous, 16-byte aligned.  Returns the
-// CUDA error code of the launch (0 on success).
+// q, k, v, o: bf16 [bh, L, hd] contiguous, 16-byte aligned; lse: fp32
+// [bh, L] (base 2, see above) or null.  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int attention_fwd_bf16(const void* q, const void* k, const void* v,
-                                  void* o, int bh, int L, int hd, float scale,
-                                  void* stream) {
+                                  void* o, void* lse, int bh, int L, int hd,
+                                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 32: return launch<32>(q, k, v, o, bh, L, scale, s);
-    case 64: return launch<64>(q, k, v, o, bh, L, scale, s);
-    case 128: return launch<128>(q, k, v, o, bh, L, scale, s);
+    case 32: return launch<32>(q, k, v, o, l, bh, L, scale, s);
+    case 64: return launch<64>(q, k, v, o, l, bh, L, scale, s);
+    case 128: return launch<128>(q, k, v, o, l, bh, L, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,1 +1,2 @@
-"""Host-side tokenization and prefetching (numpy only)."""
+"""Host-side data: tokenization, masking, window-major batches, prefetch
+(numpy only)."""

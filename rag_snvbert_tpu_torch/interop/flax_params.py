@@ -12,6 +12,11 @@ rag_snvbert_tpu/interop/torch_ckpt.py:52-72):
   Embed ``embedding``             -> Embedding ``weight``
 
 Scalars (``res_scale``) stay scalars.  A leftover or missing leaf raises.
+
+``load_optax_adam_state`` carries an optax Adam state (``mu``, ``nu``,
+``count``, and the ``MultiSteps`` fields around it) into the port's
+``train.schedule.Optimizer`` by the same rules, so one update can be held
+against optax from the same state.
 """
 
 from __future__ import annotations
@@ -44,6 +49,10 @@ def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def _torch_key(path: tuple) -> str:
+    return ".".join(path[:-1] + (_RENAME.get(path[-1], path[-1]),))
+
+
 @torch.no_grad()
 def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy every leaf of ``params`` (nested dicts of arrays, the flax
@@ -54,7 +63,7 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     seen = set()
     extra = []
     for path, arr in _flatten(params).items():
-        key = ".".join(path[:-1] + (_RENAME.get(path[-1], path[-1]),))
+        key = _torch_key(path)
         if key not in state:
             extra.append("/".join(path))
             continue
@@ -71,3 +80,62 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
                        f"tensor {extra}; torch tensors without a leaf "
                        f"{missing}")
     return model
+
+
+def _find(state, want: str):
+    """Every node under an optax state (nested tuples of named tuples) that
+    has field ``want``."""
+    if want in getattr(state, "_fields", ()):
+        return [state]
+    if isinstance(state, tuple):
+        return [n for sub in state for n in _find(sub, want)]
+    return []
+
+
+def _tree_into(optimizer, tree: Mapping, what: str) -> dict:
+    """A flax-layout tree of float32 leaves -> ``{parameter name: tensor}``
+    for ``optimizer``'s parameters; raises on a leftover or missing leaf."""
+    shapes = {n: tuple(p.shape) for n, p in zip(optimizer.names,
+                                                 optimizer.params)}
+    out, extra = {}, []
+    for path, arr in _flatten(tree).items():
+        name = _torch_key(path)
+        if name not in shapes:
+            extra.append("/".join(path))
+            continue
+        val = np.array(_to_torch_layout(path[-1], arr), order="C")
+        if tuple(val.shape) != shapes[name]:
+            raise ValueError(f"{what} {'/'.join(path)}: shape {val.shape} "
+                             f"does not fit {name}")
+        out[name] = torch.from_numpy(val).float()
+    missing = sorted(set(shapes) - set(out))
+    if extra or missing:
+        raise KeyError(f"{what}: leaves without a parameter {extra}; "
+                       f"parameters without a leaf {missing}")
+    return out
+
+
+@torch.no_grad()
+def load_optax_adam_state(optimizer, opt_state) -> None:
+    """Copy an optax state of ``make_optimizer``'s chain (clip -> adamw ->
+    schedule, optionally inside ``MultiSteps``) into ``optimizer``:
+    Adam's ``mu``/``nu`` by the layout rules above, its ``count`` (which
+    must equal the schedule's), and ``mini_step``/``acc_grads`` of
+    MultiSteps.  The optimizer's ``accum_steps`` must match the state."""
+    multi = hasattr(opt_state, "mini_step")
+    if multi != (optimizer.acc is not None):
+        raise ValueError("optax state and optimizer disagree on gradient "
+                         "accumulation (MultiSteps)")
+    inner = opt_state.inner_opt_state if multi else opt_state
+    adam = _find(inner, "mu")
+    counts = {int(np.asarray(n.count)) for n in _find(inner, "count")}
+    if len(adam) != 1 or len(counts) != 1:
+        raise ValueError("expected one Adam state and one update count in "
+                         f"the optax state, found {len(adam)} and {counts}")
+    optimizer.load_state_dict({
+        "count": counts.pop(),
+        "mini_step": int(np.asarray(opt_state.mini_step)) if multi else 0,
+        "mu": _tree_into(optimizer, adam[0].mu, "mu"),
+        "nu": _tree_into(optimizer, adam[0].nu, "nu"),
+        "acc": (_tree_into(optimizer, opt_state.acc_grads, "acc")
+                if multi else None)})

@@ -67,9 +67,10 @@ class BERTWithEmbeddingRAG(BERT):
 
     def __init__(self, vocab_size: int, dims: int = 512, **kw):
         super().__init__(vocab_size, dims, **kw)
+        # The JAX package builds this module with its default dropout 0.1,
+        # whatever the model's rate (bert.py:128-129); so does the port.
         self.rag_fusion = EnhancedRareVariantFusion(
-            dims, dropout=kw.get("dropout", 0.1),
-            dtype=self.embedding.dtype)
+            dims, dtype=self.embedding.dtype)
 
     def forward(self, x: dict):
         b = x["hap_1"].shape[0]

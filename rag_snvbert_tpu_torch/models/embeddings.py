@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..io.vocab import MAX_SEQ_LEN, PAD
-from .layers import Dense, LayerNorm, gelu
+from .layers import Dense, Dropout, LayerNorm, gelu
 
 
 def sinusoidal_table(max_len: int, dims: int, dtype=torch.float32,
@@ -68,7 +68,7 @@ class BERTEmbedding(nn.Module):
         self.Embed_0 = nn.Embedding(vocab_size, embed_size)
         self.AFEmbedding_0 = AFEmbedding(embed_size, dtype=dtype) \
             if use_af else None
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, seq: torch.Tensor, af: torch.Tensor | None = None,
                 pos: bool = True) -> torch.Tensor:

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, LayerNorm, gelu
+from .layers import Dense, Dropout, LayerNorm, gelu
 
 
 class FrozenBatchNorm(nn.Module):
@@ -128,7 +128,7 @@ class EnhancedRareVariantFusion(nn.Module):
         self.Dense_3 = Dense(4 * dims, dims, dtype)
         self.LayerNorm_0 = LayerNorm(dims, dtype)
         self.res_scale = nn.Parameter(torch.tensor(0.1))
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, orig_feat: torch.Tensor, rag_feat: torch.Tensor,
                 global_af: torch.Tensor,

@@ -60,16 +60,47 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def residual_dropout(x: torch.Tensor, rate: float, training: bool,
-                     broadcast: bool = False) -> torch.Tensor:
-    """Dropout whose mask is shared along the sequence axis when
-    ``broadcast`` (the JAX package's ``dropout_broadcast``)."""
-    if not training or rate == 0.0:
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
+            broadcast: bool = False) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    ``1 - rate`` and divide the kept ones by it, with the keep draws taken
+    from ``gen`` (never torch's global RNG).  ``broadcast`` shares one mask
+    along the sequence axis of ``[B, L, D]`` (the JAX package's
+    ``dropout_broadcast``).  Raises without a generator."""
+    if rate == 0.0:
         return x
-    if broadcast:
-        keep = F.dropout(x.new_ones(x.shape[0], 1, x.shape[2]), rate, True)
-        return x * keep
-    return F.dropout(x, rate, True)
+    if gen is None:
+        raise RuntimeError("dropout in train mode needs a generator: call "
+                           "set_dropout_generator(model, generator) first")
+    shape = (x.shape[0], 1, x.shape[2]) if broadcast else x.shape
+    keep = torch.rand(shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+class Dropout(nn.Module):
+    """Dropout whose draws come from the generator that
+    ``set_dropout_generator`` hands it; the identity in eval mode."""
+
+    def __init__(self, rate: float, broadcast: bool = False):
+        super().__init__()
+        self.rate, self.broadcast = rate, broadcast
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        return dropout(x, self.rate, self.generator, self.broadcast)
+
+
+def set_dropout_generator(model: nn.Module,
+                          gen: torch.Generator | None) -> None:
+    """Give every ``Dropout`` of ``model`` the generator to draw from (one
+    per training step: the trainer seeds it from the run seed and the
+    step)."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = gen
 
 
 @torch.no_grad()

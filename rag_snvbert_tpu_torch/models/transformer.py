@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
-from .layers import Dense, LayerNorm, residual_dropout
+from .layers import Dense, Dropout, LayerNorm
 
 
 class MultiHeadAttention(nn.Module):
@@ -31,6 +31,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"dims {dims} not divisible by heads {heads}")
         self.heads, self.dims, self.dtype = heads, dims, dtype
         self.attn_rate = dropout if attn_dropout is None else attn_dropout
+        self.attn_drop = Dropout(self.attn_rate)
         self.flash = flash
         self.score_dtype = score_dtype
         self.fused_qkv = fused_qkv
@@ -65,7 +66,7 @@ class MultiHeadAttention(nn.Module):
             if mask is not None:
                 score = score.masked_fill(mask == 0, -1e9)
             probs = torch.softmax(score, dim=-1).to(self.dtype)
-            probs = F.dropout(probs, self.attn_rate, self.training)
+            probs = self.attn_drop(probs)
             out = torch.matmul(probs, v)
         out = out.transpose(1, 2).reshape(b, l, d)
         return self.output(out)
@@ -82,12 +83,12 @@ class FeedForward(nn.Module):
         self.w_1 = Dense(dims, hidden_dims, dtype)
         self.LayerNorm_0 = LayerNorm(hidden_dims, dtype)
         self.w_2 = Dense(hidden_dims, dims, dtype)
-        self.rate, self.broadcast = dropout, dropout_broadcast
+        self.drop = Dropout(dropout, dropout_broadcast)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.LayerNorm_0(F.leaky_relu(self.w_1(x), 0.1))
         h = F.leaky_relu(self.w_2(h), 0.1)
-        return residual_dropout(h, self.rate, self.training, self.broadcast)
+        return self.drop(h)
 
 
 class TransformerBlock(nn.Module):
@@ -102,7 +103,7 @@ class TransformerBlock(nn.Module):
                  dropout_broadcast: bool = False, fused_qkv: bool = False):
         super().__init__()
         self.dtype, self.pre_ln = dtype, pre_ln
-        self.rate, self.broadcast = dropout, dropout_broadcast
+        self.drop = Dropout(dropout, dropout_broadcast)
         self.attention = MultiHeadAttention(
             attn_heads, dims, dropout, dtype, attn_dropout, flash,
             score_dtype, fused_qkv)
@@ -111,18 +112,15 @@ class TransformerBlock(nn.Module):
         self.LayerNorm_0 = LayerNorm(dims, dtype)
         self.LayerNorm_1 = LayerNorm(dims, dtype)
 
-    def _drop(self, y: torch.Tensor) -> torch.Tensor:
-        return residual_dropout(y, self.rate, self.training, self.broadcast)
-
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
         x = x.to(self.dtype)
         if self.pre_ln:
-            x = x + self._drop(self.attention(self.LayerNorm_0(x), mask))
-            return x + self._drop(self.feed_forward(self.LayerNorm_1(x)))
-        x = self._drop(self.LayerNorm_0(x + self.attention(x, mask)))
-        x = self._drop(self.LayerNorm_1(x + self.feed_forward(x)))
-        return self._drop(x)
+            x = x + self.drop(self.attention(self.LayerNorm_0(x), mask))
+            return x + self.drop(self.feed_forward(self.LayerNorm_1(x)))
+        x = self.drop(self.LayerNorm_0(x + self.attention(x, mask)))
+        x = self.drop(self.LayerNorm_1(x + self.feed_forward(x)))
+        return self.drop(x)
 
 
 class Encoder(nn.Module):

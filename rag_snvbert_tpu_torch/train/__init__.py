@@ -1,1 +1,1 @@
-"""Retrieval for training and serving (torch)."""
+"""Training: retrieval, losses, metrics, optimizer, steps, trainer (torch)."""

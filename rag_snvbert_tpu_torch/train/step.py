@@ -1,0 +1,148 @@
+"""Train and eval steps: retrieval + forward + focal losses + device
+metrics, and the optimizer update.
+
+Port of rag_snvbert_tpu/train/step.py (``expand_packed`` :54-78,
+``_forward`` :81-108, ``_train_core`` :148-161, ``eval_step`` :191-203).
+One call of ``train_step`` is one micro-step of the JAX step: retrieval
+(gradient through the query embedding and the re-embedding, none through
+the search), the dual-haplotype forward, the 3/3/4 focal objective, the
+metric counters, backward, and ``Optimizer.step`` (which applies an update
+every ``accum_steps`` micro-steps).  Nothing here copies to the host.
+
+The JAX ``train_step_scan`` (:164-188) fuses K steps into one TPU dispatch;
+the port runs K ordinary steps instead (``TrainerConfig.steps_per_dispatch``
+has no effect).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.layers import set_dropout_generator
+from . import losses, metrics
+from .retrieval import WindowRefContext, retrieve
+from .schedule import Optimizer, global_norm  # noqa: F401  (re-export)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    focal_gamma: float = 2.0
+    use_recon: bool = False
+    rag_k: int = 1
+    rare_threshold: float = 0.05
+    # False takes the plain search even on the card (the twin of the JAX
+    # ``use_pallas=False``); True takes the l2_topk kernel on the card.
+    use_kernel: bool = True
+
+
+def _labels(batch: dict) -> dict:
+    return {"hap_1": batch["hap_1_label"], "hap_2": batch["hap_2_label"],
+            "gt": batch["gt_label"]}
+
+
+_INT_KEYS = ("hap_1", "hap_2", "hap_1_label", "hap_2_label", "gt_label",
+             "mask")
+_PACKED_KEYS = ("pos", "af", "feat_rows", "feat_sel")
+
+
+def expand_packed(batch: dict) -> dict:
+    """Undo the compact wire format of ``make_batch(packed=True)`` on the
+    device: int8 tokens/labels/mask to int64, window-level ``pos``/``af``
+    ``[L]`` broadcast to ``[B, L]``, and the per-population feature rows
+    ``[P, L, 4]`` gathered by the ``[B]`` ``feat_sel``.  A non-packed batch
+    passes through unchanged."""
+    if "feat_rows" not in batch:
+        return batch
+    b = batch["hap_1"].shape[0]
+    out = {k: batch[k].long() for k in _INT_KEYS}
+    for k in ("pos", "af"):
+        x = batch[k].float()
+        out[k] = x[None, :].expand(b, x.shape[0])
+    feats = batch["feat_rows"][batch["feat_sel"].long()]       # [B, L, 4]
+    for i, name in enumerate(("af_p", "ref", "het", "hom")):
+        out[name] = feats[..., i]
+    for k, v in batch.items():   # pass through anything else (rag_emb_*...)
+        if k not in out and k not in _PACKED_KEYS:
+            out[k] = v
+    return out
+
+
+def _forward(model, batch: dict, ctx: WindowRefContext | None,
+             cfg: StepConfig) -> tuple[torch.Tensor, dict, dict]:
+    batch = expand_packed(batch)
+    if ctx is not None:
+        batch = retrieve(model.embed, batch, ctx, cfg.rag_k, cfg.use_kernel)
+    outputs = model(batch)
+    labels = _labels(batch)
+    mask = batch["mask"]
+    loss, aux = losses.total_loss(outputs, labels, mask, cfg.focal_gamma,
+                                  cfg.use_recon)
+    counters = metrics.batch_counters(outputs, labels, mask, batch["af"],
+                                      cfg.rare_threshold)
+    return loss, aux, counters
+
+
+def _accumulate(acc: dict | None, stats: dict) -> dict | None:
+    """Fold a step's counters and loss totals into the epoch accumulator
+    ``{"counters": ..., "totals": ...}`` (device tensors)."""
+    if acc is None:
+        return None
+    totals = {k: (v + stats[k] if k in stats else v)
+              for k, v in acc["totals"].items()}
+    return {"counters": metrics.accumulate(acc["counters"],
+                                           stats["counters"]),
+            "totals": totals}
+
+
+def step_generator(seed: int, step: int,
+                   device: torch.device) -> torch.Generator:
+    """The dropout generator of micro-step ``step`` of a run seeded
+    ``seed``: a pure function of the two, so a resumed run draws what an
+    uninterrupted one would (the JAX step folds ``state.step`` into its
+    key, step.py:149)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def train_step(model, optimizer: Optimizer, batch: dict,
+               ctx: WindowRefContext | None, cfg: StepConfig,
+               generator: torch.Generator | None = None,
+               acc: dict | None = None):
+    """One micro-step in train mode with dropout drawn from ``generator``
+    (needed when the model has dropout).  Returns the step's device stats
+    ``{"loss", "hap_loss", "gt_loss", "counters", "grad_norm"}`` (the norm
+    of this micro-step's raw gradient), or ``(stats, acc')`` when given the
+    epoch accumulator ``acc``."""
+    model.train()
+    set_dropout_generator(model, generator)
+    try:
+        loss, aux, counters = _forward(model, batch, ctx, cfg)
+        loss.backward()
+    finally:
+        set_dropout_generator(model, None)
+    with torch.no_grad():
+        grad_norm = global_norm(optimizer.grads())
+    optimizer.step()
+    optimizer.zero_grad()
+    stats = {"loss": loss.detach(),
+             **{k: v.detach() for k, v in aux.items()},
+             "counters": counters, "grad_norm": grad_norm}
+    if acc is None:
+        return stats
+    return stats, _accumulate(acc, stats)
+
+
+@torch.no_grad()
+def eval_step(model, batch: dict, ctx: WindowRefContext | None,
+              cfg: StepConfig, acc: dict | None = None):
+    """Forward-only step in eval mode; with ``acc`` returns
+    ``(stats, acc')``."""
+    model.eval()
+    loss, aux, counters = _forward(model, batch, ctx, cfg)
+    stats = {"loss": loss, **aux, "counters": counters}
+    if acc is None:
+        return stats
+    return stats, _accumulate(acc, stats)

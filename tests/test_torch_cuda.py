@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions on the card, at edge
-shapes the serving path does not reach (ragged tiles, every head dim, odd
-batch/row/d counts), their input checks, and a small model served on the
-card against the same model on the CPU.
+shapes the main path does not reach (ragged tiles, every head dim, odd
+batch/row/d counts), their input checks, and a small model served and
+trained on the card against the same model on the CPU.
 
 Marked ``cuda``; every test skips without a CUDA device.  On a machine
 with one (no JAX needed):
@@ -17,7 +17,9 @@ import torch
 
 from rag_snvbert_tpu_torch import ops
 from rag_snvbert_tpu_torch.ops import l2_ref
-from rag_snvbert_tpu_torch.ops.attention import attention, attention_plain
+from rag_snvbert_tpu_torch.ops.attention import (
+    attention, attention_bwd, attention_bwd_plain, attention_fwd,
+    attention_fwd_plain, attention_plain)
 from rag_snvbert_tpu_torch.ops.l2_topk import l2_topk, l2_topk_plain
 
 pytestmark = pytest.mark.cuda
@@ -63,6 +65,81 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         t = torch.zeros(1, 1, 128, 8, device=cuda,
                         dtype=torch.bfloat16).transpose(2, 3)
         attention(t, t, t, 1.0)
+
+
+BWD_SHAPES = [(1, 1, 1, 32), (2, 3, 63, 64), (1, 2, 64, 128),
+              (2, 1, 65, 32), (1, 3, 1030, 128), (1, 2, 130, 64)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_attention_bwd_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, do = (_bf16(shape, gen, cuda) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    out, lse = attention_fwd(q, k, v, scale)
+    ref_out, ref_lse = attention_fwd_plain(q, k, v, scale)
+    # fp32 scores summed in another order: lse agrees to ~1e-6 relative
+    assert (lse - ref_lse).abs().max().item() <= \
+        1e-4 * ref_lse.abs().max().item()
+    before = ops.launch_counts()["attention_bwd"]
+    got = attention_bwd(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["attention_bwd"] == before + 1
+    want = attention_bwd_plain(q, k, v, out, lse, do, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape
+        # P and dS rounded to bf16 as product operands, bf16 outputs
+        # (2^-9 relative each): within 2^-6 of the largest gradient.  At
+        # L = 1 dq is zero and the plain version leaves float32 rounding
+        # noise (~1e-7): hence the 1e-5 floor.
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2 ** -6 * b.float().abs().max().item() + 1e-5, \
+            (name, err)
+
+
+def test_attention_bwd_kernel_runs_are_bit_identical(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shape = (2, 3, 1030, 128)
+    q, k, v, do = (_bf16(shape, gen, cuda) for _ in range(4))
+    out, lse = attention_fwd(q, k, v, 0.1)
+    first = attention_bwd(q, k, v, out, lse, do, 0.1)
+    second = attention_bwd(q, k, v, out, lse, do, 0.1)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_is_differentiable_through_the_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (_bf16((1, 2, 70, 64), gen, cuda).requires_grad_()
+               for _ in range(3))
+    ops.reset_launches()
+    out = attention(q, k, v, 0.125)
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+    assert ops.launch_counts() == {"attention": 1, "attention_bwd": 1,
+                                   "l2_topk": 0}
+    qp, kp, vp = (x.detach().float().requires_grad_() for x in (q, k, v))
+    attention_plain(qp, kp, vp, 0.125).square().sum().backward()
+    for a, b in ((q, qp), (k, kp), (v, vp)):
+        # autograd of float32 plain math vs bf16 kernels and a bf16 dO
+        assert (a.grad.float() - b.grad).abs().max().item() <= \
+            2 ** -5 * b.grad.abs().max().item()
+
+
+def test_attention_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 1, 8, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 8, device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        attention_bwd(x, x, x, x, lse.double(), x, 1.0)
+    with pytest.raises(ValueError, match="lse"):
+        attention_bwd(x, x, x, x, lse[..., :4], x, 1.0)
+    with pytest.raises(ValueError, match="bf16"):
+        attention_bwd(x, x, x, x, lse, x.float(), 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        attention_bwd(x, x, x, x, lse, x[..., :4, :], 1.0)
+    with pytest.raises(ValueError, match="head dim"):
+        y = torch.zeros(1, 1, 8, 96, device=cuda, dtype=torch.bfloat16)
+        attention_bwd(y, y, y, y, lse, y, 1.0)
 
 
 @pytest.mark.parametrize("b,n,d,k", [
@@ -119,7 +196,8 @@ def test_small_model_serves_on_the_card_like_on_the_cpu(cuda):
     ops.reset_launches()
     on_card = Imputer(build_model(cfg, b.vocab.size, seed=1), b.ref, b.freq,
                       **kw).impute(target)
-    assert ops.launch_counts() == {"attention": 2 * 2, "l2_topk": 2}
+    assert ops.launch_counts() == {"attention": 2 * 2, "attention_bwd": 0,
+                                   "l2_topk": 2}
     on_cpu = Imputer(build_model(cfg, b.vocab.size, device="cpu", seed=1),
                      b.ref, b.freq, device="cpu", **kw).impute(target)
     miss = on_card.imputed_flag
@@ -127,3 +205,55 @@ def test_small_model_serves_on_the_card_like_on_the_cpu(cuda):
     # bf16 on both sides, rounded at other places (card kernels vs CPU
     # plain math), two layers deep
     assert d.mean() <= 5e-3 and d.max() <= 0.05
+
+
+def test_small_model_trains_on_the_card_like_on_the_cpu(cuda):
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.data.pipeline import WindowDataset
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.models.layers import Dropout
+    from rag_snvbert_tpu_torch.train import retrieval, step
+    from rag_snvbert_tpu_torch.train.schedule import make_optimizer
+
+    cfg = PRESETS["smoke"]
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, flash_attention="splash"))
+    b = make_bundle(n_train_samples=8, n_ref_samples=24, n_sites=256,
+                    n_windows=2, seed=5)
+    ds = WindowDataset(b.train, b.panel, b.freq, b.window.window_info,
+                       b.vocab, ref_vcf=b.ref, seq_len=138)
+    meta = ds.windows[0]
+    np_batch = ds.make_batch(meta, np.arange(6), 1, 0, pad_to=8, packed=True)
+    toks, af, valid = ds.window_ref_tokens(meta, pad_haps_to=64)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, b.vocab.size, device=dev, seed=2)
+        for mod in model.modules():
+            if isinstance(mod, Dropout):
+                mod.rate = 0.0
+        t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+        model.eval()
+        ctx = retrieval.encode_window_refs(
+            model.embed, t(toks).long(), t(af),
+            t(ds.window_mask(meta, 1, 0)), valid=t(valid))
+        batch = {k: t(v) for k, v in np_batch.items()}
+        ops.reset_launches()
+        opt = make_optimizer(model, 1e-3, 2e-3, 10)
+        stats = step.train_step(model, opt, batch, ctx, step.StepConfig())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == {"attention": 2,
+                                           "attention_bwd": 2, "l2_topk": 1}
+        results[dev] = (stats["loss"].item(), stats["grad_norm"].item(),
+                        {n: p.detach().cpu()
+                         for n, p in model.named_parameters()})
+    (l_gpu, n_gpu, p_gpu), (l_cpu, n_cpu, p_cpu) = results["cuda"], \
+        results["cpu"]
+    # bf16 on both sides, rounded at other places (card kernels vs CPU
+    # plain math), two layers deep: loss and raw gradient norm to 2%
+    assert abs(l_gpu - l_cpu) <= 0.02 * abs(l_cpu)
+    assert abs(n_gpu - n_cpu) <= 0.02 * n_cpu
+    # one Adam step of lr 1e-3 moves each element by at most about lr
+    # (g / (|g| + eps)): the two devices' parameters stay within 2.5 lr
+    for name, p in p_cpu.items():
+        assert (p_gpu[name] - p).abs().max().item() <= 2.5e-3, name

@@ -150,13 +150,29 @@ def test_module_matches_flax(name, kind):
 def test_residual_dropout_mask_layout(broadcast):
     """Training-mode residual dropout (the JAX ``dropout_broadcast``):
     broadcast masks are shared along the sequence axis, others are not;
-    eval mode is the identity."""
-    from rag_snvbert_tpu_torch.models.layers import residual_dropout
+    the draws come from the given generator, not the global RNG; eval mode
+    is the identity."""
+    from rag_snvbert_tpu_torch.models.layers import Dropout, dropout
 
     x = torch.ones(3, 50, 16)
-    torch.manual_seed(0)
-    y = residual_dropout(x, 0.5, True, broadcast)
+    state = torch.get_rng_state()
+    y = dropout(x, 0.5, torch.Generator().manual_seed(0), broadcast)
+    assert torch.equal(torch.get_rng_state(), state)
+    assert torch.equal(y, dropout(x, 0.5, torch.Generator().manual_seed(0),
+                                  broadcast))
     assert set(y.unique().tolist()) <= {0.0, 2.0}
     same_along_seq = bool((y == y[:, :1]).all())
     assert same_along_seq == broadcast
-    assert torch.equal(residual_dropout(x, 0.5, False, broadcast), x)
+    assert torch.equal(Dropout(0.5, broadcast).eval()(x), x)
+
+
+def test_dropout_in_train_mode_without_a_generator_raises():
+    from rag_snvbert_tpu_torch.models.layers import (Dropout,
+                                                     set_dropout_generator)
+
+    mod = Dropout(0.1).train()
+    with pytest.raises(RuntimeError, match="generator"):
+        mod(torch.ones(2, 3, 4))
+    set_dropout_generator(mod, torch.Generator().manual_seed(1))
+    assert mod(torch.ones(2, 3, 4)).shape == (2, 3, 4)
+    assert torch.equal(Dropout(0.0).train()(torch.ones(2)), torch.ones(2))
