@@ -9,12 +9,18 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``rag_snvbert_tpu_torch/csrc`` (one nvcc
 per source, started together) and holds each kernel against its plain
-PyTorch version at the main path's shapes.  Then it drives the two main
-paths at the full ``tpu_default`` width (384d, 12 layers, 3 heads of 128,
-L = 1030, a 2048-row window context) with seeded random weights: it serves
-two imputation requests through ``ImputationService`` (batch 32), and it
-trains one epoch through ``Trainer.fit`` (batch 24, gradient accumulation
-2: four micro-steps, two updates, validation, a checkpoint and a restore),
+PyTorch version at the main paths' shapes.  Then it drives four paths with
+seeded random weights, each with the launch counts set to 0 just before it
+and read just after:
+  - V18 serving and training at the full ``tpu_default`` width (384d, 12
+    layers, 3 heads of 128, L = 1030, a 2048-row window context): two
+    imputation requests through ``ImputationService`` (batch 32), and one
+    epoch of ``Trainer.fit`` (batch 24, gradient accumulation 2: four
+    micro-steps, two updates, validation, a checkpoint and a restore);
+  - V17 token-space serving and training at the full ``v17_token_rag``
+    width (192d, 10 layers, 6 heads, L = 1030, float32, the same context
+    size): two requests (batch 32) and one epoch of ``Trainer.fit``
+    (batch 16, no accumulation);
 and checks the answers and the launch counts of each path.  It prints one
 JSON line of per-kernel numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -37,10 +43,11 @@ import numpy as np
 import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call is
-# the larger of its bytes over the memory rate and its FLOPs over the bf16
-# tensor-core rate.
+# the larger of its bytes over the memory rate and its operations over the
+# tensor cores' rate for their type (bf16 or int8).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 
 ATTN_SHAPE = (64, 3, 1030, 128)        # [2B, H, L, hd] at batch 32
 BWD_SHAPE = (48, 3, 1030, 128)         # [2B, H, L, hd] at training batch 24
@@ -76,6 +83,22 @@ LSE_REL_TOL = 1e-5
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 0.05
 TRAIN_DIR = "runs/chip_smoke_train"     # inside the checkout (.gitignore)
+# l2_topk_rf: the token-serving search ([2B, L] masked token queries against
+# a window context of 2008 haplotypes + 40 +inf padding rows) and the
+# genotype-index point of the TPU rounds' bench (BENCH_r05.json: 331
+# windows x 2008 haplotypes of binary vectors, d = 2040, 1024 queries).
+RF_SERVE = (64, 2048, 1030)
+RF_INDEX = (1024, 331 * 2008, 2040)
+# Token serving and training: kernel path vs plain search path on the card.
+# The search is exact on both, so the same rows come back and the rest of
+# the forward runs the same kernels on the same inputs: probabilities to
+# 1e-5; the loss to 1e-6 relative and each parameter's gradient to 1e-4
+# relative L2 (the key biases' floor as above; cuDNN's convolution backward
+# may sum in another order from call to call).
+TOKEN_PROB_TOL = 1e-5
+TOKEN_LOSS_TOL = 1e-6
+TOKEN_GRAD_TOL = 1e-4
+TOKEN_TRAIN_DIR = "runs/chip_smoke_token_train"
 
 
 def fail(msg: str) -> None:
@@ -111,9 +134,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float,
+          op_rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = ops / op_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -297,6 +321,96 @@ def phase_l2(gen) -> dict:
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
 
 
+def _rf_case(name, q, refs, norms, k, pack, d, lib_refs, iters) -> dict:
+    """l2_topk_rf against its plain version (ids and distances exactly
+    equal, reruns bit-identical), then timed beside the plain version and
+    the library yardstick: ``torch._int_mm`` over the unpacked int8 refs,
+    the norms, and ``torch.topk``."""
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import (l2_topk_rf,
+                                                      l2_topk_rf_plain)
+
+    vals, ids = l2_topk_rf(q, refs, norms, k, pack=pack)
+    torch.cuda.synchronize()
+    rv, ri = l2_topk_rf_plain(q, refs, norms, k, pack=pack)
+    same = torch.equal(ids, ri) and torch.equal(vals, rv)
+    fin = torch.isfinite(rv)
+    err = (vals[fin] - rv[fin]).abs().max().item() if fin.any() else 0.0
+    again = l2_topk_rf(q, refs, norms, k, pack=pack)
+    rerun = torch.equal(again[0], vals) and torch.equal(again[1], ids)
+    print(f"l2_topk_rf {name}: ids and distances equal to plain {same}, "
+          f"max_abs_err {err}, rerun bit-identical {rerun}")
+    check(same and rerun, f"l2_topk_rf disagrees with its plain version "
+          f"({name})")
+    del again, rv, ri
+    b, n = q.shape[0], refs.shape[0]
+    qn = (q.to(torch.int32) ** 2).sum(1).float()
+
+    def library():
+        dots = torch._int_mm(q, lib_refs.t()).float()
+        return torch.topk(qn[:, None] + norms[None] - 2.0 * dots, k, dim=1,
+                          largest=False)
+
+    ms = time_ms(lambda: l2_topk_rf(q, refs, norms, k, pack=pack), iters)
+    plain_ms = time_ms(lambda: l2_topk_rf_plain(q, refs, norms, k,
+                                                pack=pack), 2, 1)
+    lib_ms = time_ms(library, iters)
+    # each input read once (refs as stored: packed bytes at pack 8), the
+    # outputs written once; 2 operations per query x row x column of d
+    b_ms, by = bound(q.numel() + refs.numel() + 4 * n + 8 * b * k,
+                     2 * b * n * d, INT8_OP_PER_S)
+    print(f"l2_topk_rf {name}: q {list(q.shape)} refs {list(refs.shape)} "
+          f"int8 pack {pack} k={k}: kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} library_ms {lib_ms:.4f} (_int_mm+norms+topk "
+          f"over unpacked refs) bound_ms {b_ms:.4f} ({by})")
+    return {"shape": name, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def phase_l2_rf(gen) -> dict:
+    from rag_snvbert_tpu_torch.ops.planar import pack_planar, planar_sq_norms
+
+    # (a) token serving: token ids 0-6 (specials, alleles), the context's
+    # int8 operand padded to 1040 columns as build_token_window_ctx pads
+    # it, 40 +inf padding rows, duplicated rows (exact ties).
+    b, n, d = RF_SERVE
+    width = -(-d // 16) * 16
+    refs = torch.zeros(n, width, dtype=torch.int8, device="cuda")
+    refs[: n - L2_PAD_ROWS, :d] = torch.randint(
+        0, 7, (n - L2_PAD_ROWS, d), generator=gen, device="cuda",
+        dtype=torch.int8)
+    refs[1500:1510] = refs[:10]
+    norms = (refs.to(torch.int32) ** 2).sum(1).float()
+    norms[-L2_PAD_ROWS:] = float("inf")
+    q = refs[torch.randperm(n - L2_PAD_ROWS, generator=gen,
+                            device="cuda")[:b]].clone()
+    q[:, 0:d:5] = 4                            # masked sites
+    cases = [_rf_case(f"token serving k={k}", q, refs, norms, k, 1, d, refs,
+                      50) for k in (1, 10)]
+    # (b), (c): the genotype index, binary vectors, planar-packed (pack 8,
+    # [N, 256] bytes) and unpacked ([N, 2040] int8)
+    b, n, d = RF_INDEX
+    bits = torch.randint(0, 2, (n, d), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    qb = torch.randint(0, 2, (b, d), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    packed = pack_planar(bits, 8)
+    norms = planar_sq_norms(packed, 8)
+    cases.append(_rf_case("index pack=8", qb, packed, norms, 10, 8, d, bits,
+                          10))
+    del packed
+    cases.append(_rf_case("index pack=1", qb, bits, norms, 10, 1, d, bits,
+                          10))
+    main = cases[0]
+    return {"name": "l2_topk_rf", "route": "cuda",
+            "source": "rag_snvbert_tpu_torch/csrc/l2_topk_rf.cu",
+            "replaces": "rag_snvbert_tpu/ops/l2_topk_pallas.py:356",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "by_shape": cases}
+
+
 def _drop(vcf, keep):
     return dataclasses.replace(vcf, gt=vcf.gt[keep], pos=vcf.pos[keep],
                                chrom=vcf.chrom[keep], ref=vcf.ref[keep],
@@ -350,7 +464,8 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * batches * len(targets),
-            "attention_bwd": 0, "l2_topk": batches * len(targets)}
+            "attention_bwd": 0, "l2_topk": batches * len(targets),
+            "l2_topk_rf": 0}
     print(f"launches {counts} (expected {want}: {n_win} windows x "
           f"{batches // n_win} batches x {len(targets)} requests); peak "
           f"device memory {peak_gb:.2f} GB")
@@ -485,7 +600,7 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     peak_fit = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * (micro + val_steps),
             "attention_bwd": m.n_layers * micro,
-            "l2_topk": micro + val_steps}
+            "l2_topk": micro + val_steps, "l2_topk_rf": 0}
     print(f"fit: {fit_s:.2f} s for {micro} micro-steps ({opt.count} updates) "
           f"+ {val_steps} validation steps + a checkpoint; launches {counts} "
           f"(expected {want}); peak device memory {peak_fit:.2f} GB")
@@ -576,14 +691,14 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     k_loss, k_grads = _grads_of_one_batch(model, batch, ctx_of, True)
     one = ops.launch_counts()
     check(one == {"attention": m.n_layers, "attention_bwd": m.n_layers,
-                  "l2_topk": 1}, f"kernel path launches {one}")
+                  "l2_topk": 1, "l2_topk_rf": 0},
+          f"kernel path launches {one}")
     del model
     model = build_model(plain_cfg, bundle.vocab.size, seed=0)
     model.load_state_dict(state)
     ops.reset_launches()
     p_loss, p_grads = _grads_of_one_batch(model, batch, ctx_of, False)
-    check(ops.launch_counts() == {"attention": 0, "attention_bwd": 0,
-                                  "l2_topk": 0},
+    check(not any(ops.launch_counts().values()),
           "the plain path launched a kernel")
     total = torch.sqrt(sum((g.double() ** 2).sum()
                            for g in p_grads.values())).item()
@@ -602,6 +717,266 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     check(loss_rel <= TRAIN_LOSS_TOL and max(rels.values()) <= TRAIN_GRAD_TOL
           and all(bool(torch.isfinite(g).all()) for g in k_grads.values()),
           "training gradients disagree with the plain path")
+    return counts
+
+
+def _recording(module, store: list):
+    """Wrap ``module.retrieve_tokens`` so each call's retrieved segments
+    are kept; returns the original to put back."""
+    real = module.retrieve_tokens
+
+    def rec(*a, **kw):
+        out = real(*a, **kw)
+        store.append((out["rag_seg_h1"].cpu(), out["rag_seg_h2"].cpu()))
+        return out
+
+    module.retrieve_tokens = rec
+    return real
+
+
+def phase_token_serving(profile: bool = False) -> dict[str, int]:
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.infer import imputer as imputer_mod
+    from rag_snvbert_tpu_torch.infer.imputer import Imputer
+    from rag_snvbert_tpu_torch.infer.serve import ImputationService
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+
+    cfg = PRESETS["v17_token_rag"]
+    m = cfg.model
+    bundle = make_bundle(n_train_samples=64, n_ref_samples=1004,
+                         n_sites=3 * 1020, n_windows=3, seed=17)
+    model = build_model(cfg, bundle.vocab.size, seed=0)
+    print(f"model v17_token_rag: {m.dims}d/{m.n_layers}L/{m.attn_heads}H, "
+          f"seq_len {m.seq_len}, bf16 {m.bf16}, attention dropout "
+          f"{m.dropout if m.attn_dropout is None else m.attn_dropout}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters")
+    svc = ImputationService.create(model, bundle.ref, bundle.freq,
+                                   batch_size=32, rag_mode="token")
+    imp = svc.imputer
+    n_win, n_samp = len(imp.windows), bundle.train.n_samples
+    batches = n_win * -(-n_samp // imp.batch_size)
+    targets = []
+    for seed in (1, 2):
+        keep = np.random.default_rng(seed).random(bundle.train.n_variants) \
+            >= 0.5
+        targets.append((keep, _drop(bundle.train, keep)))
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    results = []
+    for i, (keep, target) in enumerate(targets):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = svc.handle_target(target)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        results.append(res)
+        n_imp = int(res.imputed_flag.sum()) * n_samp
+        print(f"token request {i}: {sec:.3f} s, {n_imp} imputed genotypes, "
+              f"{n_imp / sec:.0f} imputed genotypes/s")
+    counts = ops.launch_counts()
+    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
+            "l2_topk_rf": batches * len(targets)}
+    print(f"token launches {counts} (expected {want}: {n_win} windows x "
+          f"{batches // n_win} batches x {len(targets)} requests); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(counts == want, "token serving did not go through l2_topk_rf")
+    for (keep, target), res in zip(targets, results):
+        shape = (bundle.ref.n_variants, n_samp)
+        check(res.hap1_prob.shape == shape and res.gt_prob.shape
+              == shape + (4,), "token result shapes")
+        for p in (res.hap1_prob, res.hap2_prob, res.gt_prob):
+            check(bool(np.isfinite(p).all() and (p >= 0).all()
+                       and (p <= 1).all()), "probabilities outside [0, 1]")
+        check(bool(np.abs(res.gt_prob.sum(-1) - 1).max() < 1e-3),
+              "gt_prob rows do not sum to 1")
+        check((res.imputed_flag == ~keep).all(), "imputed flags")
+        check(bool((res.hap1_prob[keep] == bundle.train.gt[keep, :, 0]).all()
+                   and (res.hap2_prob[keep]
+                        == bundle.train.gt[keep, :, 1]).all()),
+              "known sites did not pass through")
+
+    # Window 0, kernel search vs plain search on the card (same model):
+    # the same segments come back, so the same probabilities.
+    s, e = imp.windows[0]
+    sites = np.zeros(bundle.ref.n_variants, bool)
+    sites[s:e] = True
+    keep, target = targets[0]
+    window = {}
+    for use_kernel in (True, False):
+        segs: list = []
+        real = _recording(imputer_mod, segs)
+        try:
+            before = ops.launch_counts()["l2_topk_rf"]
+            res = Imputer(model, _drop(bundle.ref, sites), bundle.freq,
+                          batch_size=32, rag_mode="token",
+                          use_kernel=use_kernel).impute(
+                _drop(target, sites[keep]))
+            launched = ops.launch_counts()["l2_topk_rf"] - before
+        finally:
+            imputer_mod.retrieve_tokens = real
+        check(launched == (len(segs) if use_kernel else 0),
+              f"window 0 launches {launched} with use_kernel={use_kernel}")
+        window[use_kernel] = (res, segs)
+    (kres, ksegs), (pres, psegs) = window[True], window[False]
+    same_segs = len(ksegs) == len(psegs) and all(
+        torch.equal(a, c) and torch.equal(b, d)
+        for (a, b), (c, d) in zip(ksegs, psegs))
+    miss = results[0].imputed_flag[s:e]
+    d_plain = max(float(np.abs(getattr(kres, f)[miss]
+                               - getattr(pres, f)[miss]).max())
+                  for f in ("hap1_prob", "hap2_prob", "gt_prob"))
+    d_req = max(float(np.abs(getattr(results[0], f)[s:e][miss]
+                             - getattr(kres, f)[miss]).max())
+                for f in ("hap1_prob", "hap2_prob", "gt_prob"))
+    print(f"token window 0, kernel vs plain search on the card: "
+          f"{len(ksegs)} batches, retrieved segments equal {same_segs}; "
+          f"max |dp| vs plain {d_plain:.3e}, vs the request {d_req:.3e} "
+          f"(tol {TOKEN_PROB_TOL})")
+    check(same_segs and d_plain <= TOKEN_PROB_TOL
+          and d_req <= TOKEN_PROB_TOL,
+          "token serving disagrees with the plain search path")
+    if profile:
+        profile_request(svc, targets[1][1])
+    return counts
+
+
+def phase_token_training(profile: bool = False) -> dict[str, int]:
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.data.pipeline import WindowDataset
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.train import step
+    from rag_snvbert_tpu_torch.train.retrieval import build_token_window_ctx
+    from rag_snvbert_tpu_torch.train.schedule import make_optimizer
+    from rag_snvbert_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = PRESETS["v17_token_rag"]
+    m = cfg.model
+    bundle = make_bundle(n_train_samples=32, n_ref_samples=1004,
+                         n_sites=2 * 1020, n_windows=2, seed=23)
+    ds = WindowDataset(bundle.train, bundle.panel, bundle.freq,
+                       bundle.window.window_info, bundle.vocab,
+                       ref_vcf=bundle.ref, seq_len=m.seq_len)
+    shutil.rmtree(TOKEN_TRAIN_DIR, ignore_errors=True)
+    tcfg = TrainerConfig(
+        epochs=1, batch_size=cfg.batch_size, val_batch_size=cfg.val_batch_size,
+        init_lr=cfg.init_lr, max_lr=cfg.max_lr, warmup_steps=cfg.warmup_steps,
+        grad_accum_steps=cfg.grad_accum_steps, focal_gamma=cfg.focal_gamma,
+        rag_k=cfg.rag_k, ref_pad_haps=2048, output_dir=TOKEN_TRAIN_DIR,
+        log_freq=1, seed=0, rag_mode="token")
+    trainer = Trainer(build_model(cfg, bundle.vocab.size, seed=0), ds, tcfg,
+                      val_ds=ds)
+    micro = ds.n_windows * -(-ds.n_samples // tcfg.batch_size)
+    val_steps = ds.n_windows * -(-ds.n_samples // tcfg.val_batch_size)
+    opt = trainer.optimizer
+    plain_step, changed = opt.step, []
+
+    def checked_step():
+        before = [p.detach().clone() for p in opt.params]
+        applied = plain_step()
+        changed.append((applied, sum(not torch.equal(b, p) for b, p in
+                                     zip(before, opt.params))))
+        return applied
+
+    opt.step = checked_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    opt.step = plain_step
+    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
+            "l2_topk_rf": micro + val_steps}
+    print(f"token fit (v17_token_rag, batch {tcfg.batch_size}, accumulation "
+          f"{tcfg.grad_accum_steps}): {fit_s:.2f} s for {micro} micro-steps "
+          f"+ {val_steps} validation steps + a checkpoint; launches {counts} "
+          f"(expected {want}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(counts == want, "token training did not go through l2_topk_rf")
+    row = result["history"][0]
+    check(all(np.isfinite(row[k]) for k in ("train_loss", "val_loss")),
+          "token training loss is not finite")
+    n_params = len(opt.params)
+    print(f"parameter tensors moved per micro-step (of {n_params}): "
+          f"{changed}")
+    check(len(changed) == micro and all(a and n >= 0.95 * n_params
+                                        for a, n in changed),
+          "token training updates did not land at every micro-step")
+
+    # Warm steps on one batch with a fresh optimizer at the preset's peak
+    # lr (5e-5, no warmup): each timed to a synchronize; the deterministic
+    # (eval) loss of the batch falls.  (At 5e-4 the post-LN model, without
+    # warmup, rose instead on an H100.)
+    meta = ds.windows[0]
+    batch = trainer._put_batch(ds.make_batch(
+        meta, np.arange(tcfg.batch_size), 0, 0, packed=True))
+    ctx = trainer._window_ctx(ds, meta, 0, 0)
+    model = trainer.model
+    before = step.eval_step(model, batch, ctx, trainer.step_cfg)["loss"]
+    fast = make_optimizer(model, cfg.max_lr, cfg.max_lr, 1)
+    times = []
+    for i in range(7):
+        gen = step.step_generator(0, 1000 + i, trainer.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step.train_step(model, fast, batch, ctx, trainer.step_cfg, gen)
+        torch.cuda.synchronize()
+        if i:                                # the first one warms up
+            times.append(time.perf_counter() - t)
+    after = step.eval_step(model, batch, ctx, trainer.step_cfg)["loss"]
+    mean_s = statistics.mean(times)
+    print(f"token warm micro-step (batch {tcfg.batch_size}, L {m.seq_len}, "
+          f"a 2048-row context): median "
+          f"{statistics.median(times) * 1e3:.1f} ms "
+          f"{[round(x * 1e3, 1) for x in times]}, mean {mean_s * 1e3:.1f} "
+          f"ms, {tcfg.batch_size / mean_s:.1f} training samples/s; eval loss "
+          f"of the batch {before.item():.4f} -> {after.item():.4f}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(bool(torch.isfinite(after)) and after.item() < before.item(),
+          "the token model's loss did not fall on a fixed batch")
+    if profile:
+        profile_train_steps(trainer, fast, batch, ctx)
+
+    # One batch, dropout off: kernel search vs plain search on the card.
+    state = model.state_dict()
+    del trainer, opt, fast, model
+    torch.cuda.empty_cache()
+
+    def ctx_of(_model):
+        toks, _, valid = (torch.from_numpy(x).cuda() for x in
+                          ds.window_ref_tokens(meta, pad_haps_to=2048))
+        wmask = torch.from_numpy(ds.window_mask(meta, 0, 0)).cuda()
+        return build_token_window_ctx(toks.long(), wmask, valid=valid)
+
+    grads = {}
+    for use_kernel in (True, False):
+        model = build_model(cfg, bundle.vocab.size, seed=0)
+        model.load_state_dict(state)
+        ops.reset_launches()
+        grads[use_kernel] = _grads_of_one_batch(model, batch, ctx_of,
+                                                use_kernel)
+        check(ops.launch_counts()["l2_topk_rf"] == int(use_kernel),
+              f"one batch, use_kernel={use_kernel}: launches "
+              f"{ops.launch_counts()}")
+        del model
+    (k_loss, k_grads), (p_loss, p_grads) = grads[True], grads[False]
+    total = torch.sqrt(sum((g.double() ** 2).sum()
+                           for g in p_grads.values())).item()
+    rels = {n: (k_grads[n] - g).norm().item()
+            / max(g.norm().item(), 1e-3 * total) for n, g in p_grads.items()}
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    print(f"token one batch, dropout off, kernel vs plain search on the card: "
+          f"loss {k_loss:.6f} vs {p_loss:.6f} (rel {loss_rel:.2e}, tol "
+          f"{TOKEN_LOSS_TOL}); worst gradient rel L2 "
+          f"{max(rels.values()):.2e} (tol {TOKEN_GRAD_TOL})")
+    check(loss_rel <= TOKEN_LOSS_TOL and max(rels.values()) <= TOKEN_GRAD_TOL
+          and all(bool(torch.isfinite(g).all()) for g in k_grads.values()),
+          "token training gradients disagree with the plain search path")
     return counts
 
 
@@ -689,12 +1064,17 @@ def main() -> None:
     kernels.append(phase_l2(gen))
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    paths = {"serving": phase_serving(profile)}
-    print(f"serving phase {time.perf_counter() - t:.1f} s")
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    paths["training"] = phase_training(profile)
-    print(f"training phase {time.perf_counter() - t:.1f} s")
+    kernels.append(phase_l2_rf(gen))
+    print(f"l2_topk_rf phase {time.perf_counter() - t:.1f} s")
+    paths = {}
+    for name, phase in (("serving", phase_serving),
+                        ("training", phase_training),
+                        ("token_serving", phase_token_serving),
+                        ("token_training", phase_token_training)):
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        paths[name] = phase(profile)
+        print(f"{name} phase {time.perf_counter() - t:.1f} s")
     for kern in kernels:
         by_path = {p: c[kern["name"]] for p, c in paths.items()}
         kern["launches"] = sum(by_path.values())
@@ -703,8 +1083,10 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in kernels]}))
+    print(json.dumps({"kernels": [
+        {**{k: kern[k] for k in keys},
+         **({"by_shape": kern["by_shape"]} if "by_shape" in kern else {})}
+        for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

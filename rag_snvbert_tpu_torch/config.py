@@ -152,7 +152,7 @@ def build_model(cfg: RunConfig, vocab_size: int, device=None,
     """
     from .device import resolve_device
     from .models import (BERT, BERTFoundationModel, BERTWithEmbeddingRAG,
-                         init_weights)
+                         BERTWithRAG, init_weights)
 
     dev = resolve_device(device)
     # A float32 Conv1d (PositionFeatModule) runs in TF32 on the card by
@@ -162,9 +162,10 @@ def build_model(cfg: RunConfig, vocab_size: int, device=None,
     m = cfg.model
     if m.int8_matmuls:
         raise NotImplementedError("int8_matmuls is not ported yet")
-    cls = {"embedding": BERTWithEmbeddingRAG, "none": BERT}.get(m.rag_mode)
+    cls = {"embedding": BERTWithEmbeddingRAG, "token": BERTWithRAG,
+           "none": BERT}.get(m.rag_mode)
     if cls is None:
-        raise NotImplementedError(f"rag_mode={m.rag_mode!r} is not ported yet")
+        raise ValueError(f"unknown rag_mode {m.rag_mode!r}")
     with torch.device("meta"):   # no default init: init_weights fills all
         bert = cls(vocab_size=vocab_size, dims=m.dims, n_layers=m.n_layers,
                    attn_heads=m.attn_heads, dropout=m.dropout, pre_ln=m.pre_ln,

@@ -1,11 +1,11 @@
 """Window-major imputation: masked-site prediction, scatter-back, NPY output
-and progressive refinement, in embedding-RAG mode (V18).
+and progressive refinement, in embedding-RAG (V18) or token-RAG (V17) mode.
 
 Port of rag_snvbert_tpu/infer/imputer.py.  Kept: fixed-stride (or
 window-table) windows, one-window lookahead of the reference context, the
 threaded query assembly, and the depth-bounded pipeline of device outputs.
-Not ported yet: token and no-RAG modes, persisted indexes (``index_dir``),
-the device mesh, and VCF writing.
+Not ported yet: the no-RAG mode, persisted indexes (``index_dir``), the
+device mesh, and VCF writing.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ from ..device import resolve_device
 from ..io.freq import AF, FreqTable
 from ..io.vcf import VCFData
 from ..io.vocab import INFER_WINDOW_LEN, MAX_SEQ_LEN
-from ..train.retrieval import WindowRefContext, encode_window_refs, retrieve
+from ..train.retrieval import (TokenWindowContext, WindowRefContext,
+                               build_token_window_ctx, check_int8_vocab,
+                               encode_window_refs, retrieve, retrieve_tokens)
 
 
 @dataclasses.dataclass
@@ -45,8 +47,11 @@ class ImputationResult:
 class Imputer:
     """Impute target samples onto the reference panel's site list.
 
-    ``model`` is a ``BERTFoundationModel`` over ``BERTWithEmbeddingRAG``;
-    it is moved to ``device`` (``None``: the card, raising without one;
+    ``model`` is a ``BERTFoundationModel`` over ``BERTWithEmbeddingRAG``
+    (``rag_mode="embedding"``, V18) or ``BERTWithRAG`` (``"token"``, V17:
+    the context is the window's masked reference tokens and the model
+    re-encodes the retrieved segments); ``"none"`` is not ported yet.  The
+    model is moved to ``device`` (``None``: the card, raising without one;
     ``"cpu"`` runs off the card).  ``use_kernel=False`` searches with the
     plain version even on the card (the JAX ``use_pallas=False``)."""
 
@@ -59,8 +64,15 @@ class Imputer:
                  seq_len: int = MAX_SEQ_LEN, rag_k: int = 1,
                  ref_pad_haps: int = 2048, batch_size: int = 32,
                  use_kernel: bool = True, window=None,
-                 pipeline_depth: int = 8, device=None):
+                 pipeline_depth: int = 8, device=None,
+                 rag_mode: str = "embedding"):
+        if rag_mode not in ("embedding", "token"):
+            raise NotImplementedError(f"rag_mode={rag_mode!r}: the no-RAG "
+                                      "imputer is not ported yet")
         self.device = resolve_device(device)
+        if rag_mode == "token" and self.device.type == "cuda":
+            check_int8_vocab(model)
+        self.rag_mode = rag_mode
         self.model = model.to(self.device).eval()
         self.ref_vcf = ref_vcf
         self.freq = freq
@@ -88,8 +100,8 @@ class Imputer:
     def _embed(self, tokens: torch.Tensor, af: torch.Tensor) -> torch.Tensor:
         return self.model.embed(tokens, af)
 
-    def _window_ctx(self, s: int, e: int,
-                    site_mask: np.ndarray) -> WindowRefContext:
+    def _window_ctx(self, s: int, e: int, site_mask: np.ndarray
+                    ) -> WindowRefContext | TokenWindowContext:
         raw = self.ref_vcf.gt[s:e]                    # [n, S, 2]
         raw = raw.reshape(raw.shape[0], -1).T          # [2S, n]
         toks = tokenize(raw, None, self.seq_len).astype(np.int32)
@@ -99,9 +111,13 @@ class Imputer:
                 (self.ref_pad_haps - n_haps, self.seq_len), np.int32)])
         valid = np.zeros(toks.shape[0], bool)
         valid[:n_haps] = True
+        wmask = sequence_padding(site_mask.astype(np.int32), self.seq_len)
+        if self.rag_mode == "token":
+            return build_token_window_ctx(self._tensor(toks),
+                                          self._tensor(wmask),
+                                          valid=self._tensor(valid))
         af = sequence_padding(self.freq.lookup(
             AF, self.freq.global_idx, self.ref_vcf.pos[s:e]), self.seq_len)
-        wmask = sequence_padding(site_mask.astype(np.int32), self.seq_len)
         return encode_window_refs(self._embed, self._tensor(toks),
                                   self._tensor(af), self._tensor(wmask),
                                   valid=self._tensor(valid))
@@ -118,12 +134,17 @@ class Imputer:
                 alt=target.alt[order], ids=target.ids[order])
         return target
 
-    def _forward(self, batch: dict, ctx: WindowRefContext):
+    def _forward(self, batch: dict,
+                 ctx: WindowRefContext | TokenWindowContext):
         b = batch["hap_1"].shape[0]
         batch = {k: (v[None, :].expand(b, v.shape[0])
                      if k in self._WINDOW_CONST and v.dim() == 1 else v)
                  for k, v in batch.items()}
-        x = retrieve(self._embed, batch, ctx, self.rag_k, self.use_kernel)
+        if isinstance(ctx, TokenWindowContext):
+            x = retrieve_tokens(batch, ctx, self.rag_k, self.use_kernel)
+        else:
+            x = retrieve(self._embed, batch, ctx, self.rag_k,
+                         self.use_kernel)
         out = self.model(x)
         p1 = torch.softmax(out[0].float(), dim=-1)[..., 1]
         p2 = torch.softmax(out[1].float(), dim=-1)[..., 1]

@@ -26,7 +26,9 @@ class ImputationService:
     @classmethod
     def create(cls, model, ref_vcf: VCFData, freq: FreqTable,
                device=None, **imputer_kw) -> "ImputationService":
-        """``device=None`` serves on the card (raises without one)."""
+        """``device=None`` serves on the card (raises without one);
+        ``imputer_kw`` go to ``Imputer`` (``rag_mode="token"`` serves a
+        V17 ``BERTWithRAG`` model)."""
         imp = Imputer(model, ref_vcf, freq, device=device, **imputer_kw)
         return cls(imputer=imp, ref_vcf=ref_vcf)
 

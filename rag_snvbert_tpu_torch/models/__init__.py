@@ -1,10 +1,11 @@
 """Model zoo: embeddings, fusion, transformer encoder, heads (torch)."""
 
-from .bert import BERT, BERTWithEmbeddingRAG
+from .bert import BERT, BERTWithEmbeddingRAG, BERTWithRAG
 from .heads import (BERTFoundationModel, EnhancedHaplotypeClassifier,
                     GenotypeClassifier)
 from .layers import init_weights
 
-__all__ = ["BERT", "BERTWithEmbeddingRAG", "BERTFoundationModel",
+__all__ = ["BERT", "BERTWithEmbeddingRAG", "BERTWithRAG",
+           "BERTFoundationModel",
            "EnhancedHaplotypeClassifier", "GenotypeClassifier",
            "init_weights"]

@@ -1,10 +1,11 @@
-"""BERT encoders: plain and V18 embedding-space RAG.
+"""BERT encoders: plain, V17 token-space RAG and V18 embedding-space RAG.
 
-Port of rag_snvbert_tpu/models/bert.py (the V17 token-space ``BERTWithRAG``
-is not ported yet).  Inputs are a flat dict of tensors:
+Port of rag_snvbert_tpu/models/bert.py.  Inputs are a flat dict of
+tensors:
 
   hap_1, hap_2        [B, L] int  masked token sequences
   pos, af, af_p       [B, L] float
+  rag_seg_h1/h2       [B, K, L] int      (V17 token-space RAG)
   rag_emb_h1/h2       [B, K, L, D] float (V18 embedding-space RAG)
   query_emb           [2B, L, D] (optional: retrieval already embedded
                       the stacked query tokens)
@@ -58,6 +59,42 @@ class BERT(nn.Module):
         origin = self.embed(toks, af2)
         enc = self.encode(origin, pos2, af2)
         return enc[:b], enc[b:], origin[:b], origin[b:]
+
+
+class BERTWithRAG(BERT):
+    """V17 token-space RAG: the retrieved complete token segments are
+    re-encoded through the whole embedding + fusion + encoder stack and
+    fused into each haplotype's encoding by ``EnhancedRareVariantFusion``
+    (JAX bert.py:87-117).  The queries and every retrieved segment ride one
+    stacked ``[2B (1 + K), L]`` pass: every weight is shared, and each row
+    is computed on its own, so this equals the JAX package's three
+    passes."""
+
+    def __init__(self, vocab_size: int, dims: int = 512, **kw):
+        super().__init__(vocab_size, dims, **kw)
+        # Built with its default dropout 0.1 whatever the model's rate, as
+        # in the JAX package (bert.py:94-95).
+        self.rag_fusion = EnhancedRareVariantFusion(
+            dims, dtype=self.embedding.dtype)
+
+    def forward(self, x: dict):
+        b = x["hap_1"].shape[0]
+        af2 = torch.cat([x["af"], x["af"]], dim=0)
+        pos2 = torch.cat([x["pos"], x["pos"]], dim=0)
+        segs = torch.cat([x["rag_seg_h1"], x["rag_seg_h2"]], dim=0)
+        k, l = segs.shape[1], segs.shape[2]          # segs [2B, K, L]
+        # Segment j of row i is row i * K + j of the fold, with row i's
+        # positions and frequencies (JAX encode_rag_segments).
+        af_all = torch.cat([af2, af2.repeat_interleave(k, dim=0)], dim=0)
+        pos_all = torch.cat([pos2, pos2.repeat_interleave(k, dim=0)], dim=0)
+        toks = torch.cat([x["hap_1"], x["hap_2"], segs.reshape(-1, l)], dim=0)
+        emb = self.embed(toks, af_all)
+        enc = self.encode(emb, pos_all, af_all)
+        rag = enc[2 * b:].reshape(2 * b, k, l, -1)    # [2B, K, L, D]
+        af_p = x["af_p"]
+        h = self.rag_fusion(enc[: 2 * b], rag, af2,
+                            torch.cat([af_p, af_p], dim=0))
+        return h[:b], h[b:], emb[:b], emb[b: 2 * b]
 
 
 class BERTWithEmbeddingRAG(BERT):

@@ -2,15 +2,17 @@
 versions.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``attention.launches``, ``attention_bwd.launches``, ``l2_topk.launches``),
-so a run can show that the main path went through the kernels.
+(``attention.launches``, ``attention_bwd.launches``, ``l2_topk.launches``,
+``l2_topk_rf.launches``), so a run can show that the main path went
+through the kernels.
 """
 
 from .attention import attention, attention_bwd
 from .l2_topk import l2_topk
+from .l2_topk_rf import l2_topk_rf
 
 WRAPPERS = {"attention": attention, "attention_bwd": attention_bwd,
-            "l2_topk": l2_topk}
+            "l2_topk": l2_topk, "l2_topk_rf": l2_topk_rf}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,0 +1,193 @@
+"""Exact squared-L2 top-k over int8 vectors: wrapper of
+``csrc/l2_topk_rf.cu`` and its plain version.
+
+The kernel replaces rag_snvbert_tpu/ops/l2_topk_pallas.py::_l2_topk_kernel_rf,
+the refs-outer kernel that ``l2_topk_pallas`` takes for integer vectors
+whose d fits one tile (the V17 token search, the genotype index).  The
+semantics are those of ``l2_topk_pallas`` with integer inputs
+(:518-566): int8 queries ``[B, d]`` against int8 refs ``[N, d]``, or
+planar-packed refs ``[N, D8]`` (``ops.planar.pack_planar``, ``pack`` 2/4/8)
+whose unpacked width ``D8 * pack`` the queries are zero-padded to;
+``r_norms [N]`` float32 squared norms, ``+inf`` on rows never returned
+ahead of a finite one.  Returns ``(vals [B, k] float32 exact integer
+distances, ids [B, k] int32)``, ascending, ties to the lower id.
+
+Differences from the TPU kernel (README.md, port section):
+  - distances are exact and unclamped; the TPU kernel clamps them at
+    ``2^20 - 1`` and never returns a clamped row (:86-92, :599-603);
+  - queries are not pre-doubled, so every int8 value is exact (the TPU
+    kernel needs ``|q| <= 63``);
+  - ``+inf`` rows rank after every finite row in id order, and slots past
+    the last row hold ``(+inf, -1)`` (the TPU kernel leaves ``(+inf, 0)``
+    once the finite rows run out).
+``compute="int4"`` is accepted and computed as int8 (Hopper has no int4
+mma): the result is the same.  ``l2_topk_rf`` takes the plain version for
+CPU tensors only; a CUDA tensor goes to the kernel, or the wrapper raises
+on what the kernel does not take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .planar import PACKS, planar_unpack
+
+MAX_K = 128
+_BQ = 64              # queries per pass-1 block (csrc/l2_topk_rf.cu kBQ)
+_BN = 64              # ref rows per tile (kBN)
+_KD = 128             # unpacked bytes of d per chunk (kKD)
+_SMEM_MAX = 232448    # dynamic shared memory a block may use on an H100
+_PLAIN_CHUNK = 65536  # ref rows per step of the plain version
+_SIGNATURES = {"l2_topk_rf_s8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+               + [ctypes.c_void_p],
+               "l2_topk_rf_smem": [ctypes.c_int] * 2}
+
+
+def _unpacked(refs: torch.Tensor, pack: int) -> torch.Tensor:
+    return refs if pack == 1 else planar_unpack(refs, pack,
+                                                refs.shape[1] * pack)
+
+
+def l2_topk_rf_plain(queries: torch.Tensor, refs: torch.Tensor,
+                     r_norms: torch.Tensor, k: int, pack: int = 1
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same function in float64 (exact for these integers): the refs'
+    planes unpacked, ``|q|^2 + trunc(r_norm) - 2 q.r`` a chunk of
+    ``_PLAIN_CHUNK`` rows at a time, and a stable sort of the running best
+    ``k`` with each chunk (the ``l2_ref.topk_smallest`` tie rule).  Takes
+    any integer dtype."""
+    r = _unpacked(refs, pack)
+    q = queries.to(torch.float64)
+    q = F.pad(q, (0, r.shape[1] - q.shape[1]))
+    qn = (q * q).sum(dim=1)
+    rn = r_norms.to(torch.float64)
+    rn = torch.where(torch.isinf(rn), rn, torch.trunc(rn))
+    b, n = q.shape[0], r.shape[0]
+    best_v = q.new_empty(b, 0)
+    best_i = torch.empty(b, 0, dtype=torch.long, device=q.device)
+    for s in range(0, n, _PLAIN_CHUNK):
+        e = min(s + _PLAIN_CHUNK, n)
+        dist = qn[:, None] + rn[None, s:e] - 2.0 * (q @ r[s:e].to(
+            torch.float64).T)
+        ids = torch.arange(s, e, device=q.device).expand(b, e - s)
+        vals, order = torch.sort(torch.cat([best_v, dist], dim=1), dim=1,
+                                 stable=True)
+        best_v = vals[:, :k]
+        best_i = torch.gather(torch.cat([best_i, ids], dim=1), 1,
+                              order[:, :k])
+    if best_v.shape[1] < k:                 # fewer rows than k
+        pad = k - best_v.shape[1]
+        best_v = F.pad(best_v, (0, pad), value=float("inf"))
+        best_i = F.pad(best_i, (0, pad), value=-1)
+    return best_v.to(torch.float32), best_i.to(torch.int32)
+
+
+def unpacked_width(d: int, refs_width: int, pack: int) -> int:
+    """The width the kernel computes over: ``d`` rounded up to 128 bytes
+    (pack 1), or the planar-packed rows' unpacked width."""
+    return -(-max(d, 1) // _KD) * _KD if pack == 1 else refs_width * pack
+
+
+def split_plan(b: int, n: int, sm_count: int) -> tuple[int, int]:
+    """(splits, rows per split) of the ref rows for pass 1: about four
+    blocks per SM, each split a whole number of 64-row tiles."""
+    n_tiles = -(-n // _BN)
+    q_tiles = -(-b // _BQ)
+    splits = max(1, min(n_tiles, -(-4 * sm_count // q_tiles)))
+    rows = -(-n_tiles // splits) * _BN
+    return -(-n // rows), rows
+
+
+def _align(x: torch.Tensor) -> int:
+    """The largest of 16/8/4 dividing the address and the row stride."""
+    for a in (16, 8, 4):
+        if x.data_ptr() % a == 0 and x.shape[1] % a == 0:
+            return a
+    return 1
+
+
+def _check(queries, refs, r_norms, k, pack, compute) -> None:
+    if pack not in (1,) + PACKS:
+        raise ValueError(f"l2_topk_rf: pack must be 1, 2, 4 or 8, got {pack}")
+    if compute not in (None, "int8", "int4"):
+        raise ValueError(f"l2_topk_rf: compute must be None, 'int8' or "
+                         f"'int4', got {compute!r}")
+    if pack == 2 and compute == "int4":
+        raise ValueError(
+            "compute=int4 admits values in [-8, 7]: pack=2 planes reach 15 "
+            "and doubled queries 30 -- use pack >= 4")
+    if queries.dim() != 2 or refs.dim() != 2:
+        raise ValueError(f"l2_topk_rf: need q [B, d] and refs [N, d], got "
+                         f"{tuple(queries.shape)}, {tuple(refs.shape)}")
+    for name, x in (("queries", queries), ("refs", refs)):
+        if x.dtype != torch.int8:
+            raise ValueError(f"l2_topk_rf: {name} must be int8, got "
+                             f"{x.dtype}")
+    d, (n, rw) = queries.shape[1], refs.shape
+    if pack == 1 and d != rw:
+        raise ValueError(f"l2_topk_rf: queries d={d} != refs d={rw}")
+    if pack > 1 and (rw % _KD or d > rw * pack):
+        raise ValueError(f"l2_topk_rf: packed refs need a width that is a "
+                         f"multiple of {_KD} (pack_planar's) and d <= "
+                         f"width * pack, got width {rw}, d={d}, pack {pack}")
+    if r_norms.shape != (n,) or r_norms.dtype != torch.float32:
+        raise ValueError("l2_topk_rf: r_norms must be float32 [N]")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"l2_topk_rf: k={k} outside [1, {MAX_K}]")
+
+
+def l2_topk_rf(queries: torch.Tensor, refs: torch.Tensor,
+               r_norms: torch.Tensor, k: int, pack: int = 1,
+               compute: str | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest rows of ``refs`` for each int8 query by exact squared L2
+    (see the module docstring).  On the card the unpacked width, rounded
+    up to 128, must fit the block's shared memory with ``k``: up to 2304
+    bytes at k = 128, 3072 at k <= 32 (``l2_topk_rf_smem``); within that,
+    int32 distances cannot overflow."""
+    _check(queries, refs, r_norms, k, pack, compute)
+    if queries.device.type == "cpu":
+        return l2_topk_rf_plain(queries, refs, r_norms, k, pack)
+    if queries.device.type != "cuda":
+        raise ValueError(f"l2_topk_rf: unsupported device {queries.device}")
+    for name, x in (("refs", refs), ("r_norms", r_norms)):
+        if x.device != queries.device:
+            raise ValueError(f"l2_topk_rf: {name} is not on {queries.device}")
+    for name, x in (("queries", queries), ("refs", refs),
+                    ("r_norms", r_norms)):
+        if not x.is_contiguous():
+            raise ValueError(f"l2_topk_rf: {name} must be contiguous")
+    b, d = queries.shape
+    n, rw = refs.shape
+    dp = unpacked_width(d, rw, pack)
+    kp = -(-k // 32) * 32
+    lib = _build.load("l2_topk_rf", _SIGNATURES)
+    smem = lib.l2_topk_rf_smem(dp, kp)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"l2_topk_rf: unpacked width {dp} with k={k} needs "
+                         f"{smem} bytes of shared memory (> {_SMEM_MAX})")
+    vals = torch.empty(b, k, dtype=torch.float32, device=queries.device)
+    ids = torch.empty(b, k, dtype=torch.int32, device=queries.device)
+    if b == 0:
+        return vals, ids
+    sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
+    splits, rows = split_plan(b, max(n, 1), sms)
+    cand = torch.empty(2, splits, b, k, dtype=torch.int32,
+                       device=queries.device)
+    with torch.cuda.device(queries.device):
+        rc = lib.l2_topk_rf_s8(
+            queries.data_ptr(), refs.data_ptr(), r_norms.data_ptr(),
+            cand[0].data_ptr(), cand[1].data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), b, n, d, rw, pack, dp, k, kp, splits, rows,
+            _align(queries), _align(refs),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "l2_topk_rf")
+    l2_topk_rf.launches += 1
+    return vals, ids
+
+
+l2_topk_rf.launches = 0

@@ -1,6 +1,7 @@
-"""Embedding-space retrieval (V18), shared by training and serving.
+"""Retrieval, shared by training and serving: embedding space (V18) and
+token space (V17).
 
-Port of rag_snvbert_tpu/train/retrieval.py:39-54,128-236:
+Port of rag_snvbert_tpu/train/retrieval.py:39-236:
   1. ``encode_window_refs``: embed the window's *masked* reference
      haplotypes without gradient -> the per-window search context;
   2. ``retrieve``: embed the stacked ``[2B, L]`` queries, search the
@@ -9,6 +10,13 @@ Port of rag_snvbert_tpu/train/retrieval.py:39-54,128-236:
 Plain differentiable torch: gradients flow through the query embedding and
 the re-embedding; the search sees detached inputs.  Serving calls it under
 ``torch.inference_mode()``.
+
+The token-space twins: ``build_token_window_ctx`` masks the window's
+reference tokens and caches their norms (the per-window
+``faiss.IndexFlatL2(1030)``), and ``retrieve_tokens`` searches the raw
+masked token vectors (``ops.l2_topk_rf``, int8) and returns the *complete*
+token segments ``rag_seg_h1/h2`` for ``BERTWithRAG`` to re-encode.  The
+search is not differentiable (token ids), as in the reference.
 """
 
 from __future__ import annotations
@@ -17,10 +25,12 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from ..io.vocab import MASK
 from ..ops import l2_ref
 from ..ops.l2_topk import l2_topk, l2_topk_plain
+from ..ops.l2_topk_rf import l2_topk_rf, l2_topk_rf_plain
 
 EmbedFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # Reference rows embedded per step by encode_window_refs: bounds the float32
@@ -115,4 +125,89 @@ def retrieve(embed_fn: EmbedFn, batch: dict, ctx: WindowRefContext,
     out["rag_emb_h1"] = rag1.reshape(b, k, l, d)
     out["rag_emb_h2"] = rag2.reshape(b, k, l, d)
     out["query_emb"] = q
+    return out
+
+
+# The token search operand's width is rounded up to this many int8 columns
+# (zero columns leave distances unchanged) so the kernel loads 16 bytes at
+# a time from every row.
+TOKEN_ALIGN = 16
+
+
+@dataclasses.dataclass
+class TokenWindowContext:
+    """Per-window retrieval state of the V17 token-space mode.
+
+    ref_tokens_masked: [N, L] masked reference tokens (the search side).
+    ref_tokens:        [N, L] complete tokens (what retrieval returns).
+    ref_norms:         [N] float32 squared norms of the masked vectors
+                       (+inf for padding rows).
+    ref_search:        [N, round_up(L, 16)] int8 masked tokens, zero-padded:
+                       the kernel's operand; None when a token id does not
+                       fit int8 (the card then raises, see retrieve_tokens).
+    """
+
+    ref_tokens_masked: torch.Tensor
+    ref_tokens: torch.Tensor
+    ref_norms: torch.Tensor
+    ref_search: torch.Tensor | None
+
+
+@torch.no_grad()
+def build_token_window_ctx(ref_tokens: torch.Tensor, window_mask: torch.Tensor,
+                           valid: torch.Tensor | None = None
+                           ) -> TokenWindowContext:
+    """Mask the window's reference tokens and cache their norms (JAX
+    retrieval.py:73-90).  One host read of the tokens' range per window
+    decides whether the int8 operand exists."""
+    masked = apply_token_mask(ref_tokens, window_mask)
+    norms = l2_ref.squared_norms(masked)
+    if valid is not None:
+        norms = torch.where(valid, norms, torch.full_like(norms, float("inf")))
+    lo, hi = torch.stack(torch.aminmax(masked)).tolist()
+    search = None
+    if -128 <= lo and hi <= 127:
+        pad = -masked.shape[1] % TOKEN_ALIGN
+        search = F.pad(masked.to(torch.int8), (0, pad))
+    return TokenWindowContext(ref_tokens_masked=masked, ref_tokens=ref_tokens,
+                              ref_norms=norms, ref_search=search)
+
+
+def check_int8_vocab(model) -> None:
+    """Token mode on the card searches int8 token vectors: raise unless
+    every token id of the model's vocabulary fits int8 (the query side of
+    ``retrieve_tokens``'s check; callers that know the model make it)."""
+    vocab = model.bert.embedding.Embed_0.num_embeddings
+    if vocab > 128:
+        raise ValueError(f"token-space RAG on the card needs token ids that "
+                         f"fit int8; the vocabulary has {vocab}")
+
+
+def retrieve_tokens(batch: dict, ctx: TokenWindowContext, k: int = 1,
+                    use_kernel: bool = True) -> dict:
+    """One ``[2B, L]`` search of both haplotypes' masked tokens against the
+    window's masked references -> the batch plus ``rag_seg_h1/h2``
+    ``[B, k, L]``, the retrieved complete token segments (JAX
+    retrieval.py:93-125).
+
+    On the card the search always launches ``l2_topk_rf``, in serving and
+    in training (the JAX package takes XLA below 16,384 refs: a TPU speed
+    choice; the ids are the same).  The kernel takes int8: a reference
+    token id outside [-128, 127] raises on the card rather than falling
+    back to the plain version, and the query tokens must come from the
+    same vocabulary (the imputer and trainer check its size).
+    ``use_kernel=False`` takes the plain version even on the card."""
+    q = torch.cat([batch["hap_1"], batch["hap_2"]], dim=0)
+    if use_kernel and ctx.ref_search is not None:
+        qp = F.pad(q.to(torch.int8), (0, ctx.ref_search.shape[1] - q.shape[1]))
+        _, ids = l2_topk_rf(qp, ctx.ref_search, ctx.ref_norms, k)
+    elif use_kernel and q.is_cuda:
+        raise ValueError("retrieve_tokens: reference token ids outside "
+                         "[-128, 127] do not fit the int8 search kernel")
+    else:
+        _, ids = l2_topk_rf_plain(q, ctx.ref_tokens_masked, ctx.ref_norms, k)
+    i1, i2 = ids.long().chunk(2, dim=0)            # [B, k] each
+    out = dict(batch)
+    out["rag_seg_h1"] = ctx.ref_tokens[i1]         # [B, k, L]
+    out["rag_seg_h2"] = ctx.ref_tokens[i2]
     return out

@@ -23,7 +23,8 @@ import torch
 
 from ..models.layers import set_dropout_generator
 from . import losses, metrics
-from .retrieval import WindowRefContext, retrieve
+from .retrieval import (TokenWindowContext, WindowRefContext, retrieve,
+                        retrieve_tokens)
 from .schedule import Optimizer, global_norm  # noqa: F401  (re-export)
 
 
@@ -34,7 +35,8 @@ class StepConfig:
     rag_k: int = 1
     rare_threshold: float = 0.05
     # False takes the plain search even on the card (the twin of the JAX
-    # ``use_pallas=False``); True takes the l2_topk kernel on the card.
+    # ``use_pallas=False``); True takes the l2_topk (embedding) or
+    # l2_topk_rf (token) kernel on the card.
     use_kernel: bool = True
 
 
@@ -70,10 +72,17 @@ def expand_packed(batch: dict) -> dict:
     return out
 
 
-def _forward(model, batch: dict, ctx: WindowRefContext | None,
+Context = WindowRefContext | TokenWindowContext | None
+
+
+def _forward(model, batch: dict, ctx: Context,
              cfg: StepConfig) -> tuple[torch.Tensor, dict, dict]:
     batch = expand_packed(batch)
-    if ctx is not None:
+    if isinstance(ctx, TokenWindowContext):
+        # V17: retrieval returns raw token segments, which the model
+        # (BERTWithRAG) re-encodes.
+        batch = retrieve_tokens(batch, ctx, cfg.rag_k, cfg.use_kernel)
+    elif ctx is not None:
         batch = retrieve(model.embed, batch, ctx, cfg.rag_k, cfg.use_kernel)
     outputs = model(batch)
     labels = _labels(batch)
@@ -108,7 +117,7 @@ def step_generator(seed: int, step: int,
 
 
 def train_step(model, optimizer: Optimizer, batch: dict,
-               ctx: WindowRefContext | None, cfg: StepConfig,
+               ctx: Context, cfg: StepConfig,
                generator: torch.Generator | None = None,
                acc: dict | None = None):
     """One micro-step in train mode with dropout drawn from ``generator``
@@ -136,7 +145,7 @@ def train_step(model, optimizer: Optimizer, batch: dict,
 
 
 @torch.no_grad()
-def eval_step(model, batch: dict, ctx: WindowRefContext | None,
+def eval_step(model, batch: dict, ctx: Context,
               cfg: StepConfig, acc: dict | None = None):
     """Forward-only step in eval mode; with ``acc`` returns
     ``(stats, acc')``."""

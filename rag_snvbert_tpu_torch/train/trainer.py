@@ -41,7 +41,8 @@ from ..data import masking
 from ..data.pipeline import WindowDataset
 from ..data.prefetch import prefetch_iter
 from . import metrics as metrics_lib
-from .retrieval import encode_window_refs
+from .retrieval import (build_token_window_ctx, check_int8_vocab,
+                        encode_window_refs)
 from .schedule import make_optimizer
 from .step import StepConfig, eval_step, step_generator, train_step
 
@@ -53,8 +54,8 @@ class TrainerConfig:
     from a torch generator per step), ``ctx_merge`` (sharded context only),
     ``steps_per_dispatch`` (a TPU dispatch device: the port runs the steps
     one by one, with the same semantics), ``async_checkpoints`` (saves are
-    synchronous).  ``shard_ctx=True``, ``rag_mode="token"`` and
-    ``profile_dir`` raise: their slices are not ported yet."""
+    synchronous).  ``shard_ctx=True`` and ``profile_dir`` raise: their
+    slices are not ported yet."""
 
     epochs: int = 20
     batch_size: int = 24
@@ -75,7 +76,7 @@ class TrainerConfig:
     min_delta: float = 0.001
     val_metric: str = "hap_f1"
     ref_pad_haps: int = 2048           # static panel-size pad per window
-    rag_mode: str = "embedding"        # "embedding" (V18) | "none"
+    rag_mode: str = "embedding"        # "embedding" (V18) | "token" (V17) | "none"
     output_dir: str = "runs/default"
     log_freq: int = 100
     seed: int = 42
@@ -181,16 +182,16 @@ class Trainer:
                 "mesh/shard_ctx: data-parallel and sharded-context training "
                 "wait for the port's torch.distributed slice (ROADMAP "
                 "Queue A 7)")
-        if cfg.rag_mode not in ("embedding", "none"):
-            raise NotImplementedError(
-                f"rag_mode={cfg.rag_mode!r}: V17 token mode is not ported "
-                "yet (ROADMAP Queue A 3)")
+        if cfg.rag_mode not in ("embedding", "token", "none"):
+            raise ValueError(f"unknown rag_mode {cfg.rag_mode!r}")
         if cfg.profile_dir:
             raise NotImplementedError(
                 "profile_dir: the port has no trainer profiler capture yet; "
                 "chip_smoke.py --profile traces two training micro-steps")
         self.model = model
         self.device = next(model.parameters()).device
+        if cfg.rag_mode == "token" and self.device.type == "cuda":
+            check_int8_vocab(model)
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.train_sample_ids = (None if train_sample_ids is None
@@ -226,13 +227,20 @@ class Trainer:
     # ---- retrieval context (the per-window index, derived state) ----
 
     def _window_ctx(self, ds: WindowDataset, meta, level, seed: int):
-        """Embed the window's masked reference haplotypes with the
-        embedding in eval mode and no gradient (retrieval.py:150-161 of
-        the JAX package), whatever mode the model is in."""
+        """Token mode: the window's masked reference tokens and their norms
+        (JAX trainer.py:299-302).  Embedding mode: embed the masked
+        reference haplotypes with the embedding in eval mode and no
+        gradient (retrieval.py:150-161 of the JAX package), whatever mode
+        the model is in."""
         toks, af, valid = ds.window_ref_tokens(
             meta, pad_haps_to=self.cfg.ref_pad_haps)
         wmask = ds.window_mask(meta, level, seed)
         dev = self.device
+        if self.cfg.rag_mode == "token":
+            return build_token_window_ctx(
+                torch.from_numpy(toks).to(dev).long(),
+                torch.from_numpy(wmask).to(dev),
+                valid=torch.from_numpy(valid).to(dev))
         was_training = self.model.training
         self.model.eval()
         try:

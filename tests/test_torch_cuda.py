@@ -117,7 +117,7 @@ def test_attention_is_differentiable_through_the_kernels(cuda):
     assert out.grad_fn is not None
     out.float().square().sum().backward()
     assert ops.launch_counts() == {"attention": 1, "attention_bwd": 1,
-                                   "l2_topk": 0}
+                                   "l2_topk": 0, "l2_topk_rf": 0}
     qp, kp, vp = (x.detach().float().requires_grad_() for x in (q, k, v))
     attention_plain(qp, kp, vp, 0.125).square().sum().backward()
     for a, b in ((q, qp), (k, kp), (v, vp)):
@@ -197,7 +197,7 @@ def test_small_model_serves_on_the_card_like_on_the_cpu(cuda):
     on_card = Imputer(build_model(cfg, b.vocab.size, seed=1), b.ref, b.freq,
                       **kw).impute(target)
     assert ops.launch_counts() == {"attention": 2 * 2, "attention_bwd": 0,
-                                   "l2_topk": 2}
+                                   "l2_topk": 2, "l2_topk_rf": 0}
     on_cpu = Imputer(build_model(cfg, b.vocab.size, device="cpu", seed=1),
                      b.ref, b.freq, device="cpu", **kw).impute(target)
     miss = on_card.imputed_flag
@@ -243,7 +243,8 @@ def test_small_model_trains_on_the_card_like_on_the_cpu(cuda):
         if dev == "cuda":
             torch.cuda.synchronize()
             assert ops.launch_counts() == {"attention": 2,
-                                           "attention_bwd": 2, "l2_topk": 1}
+                                           "attention_bwd": 2, "l2_topk": 1,
+                                           "l2_topk_rf": 0}
         results[dev] = (stats["loss"].item(), stats["grad_norm"].item(),
                         {n: p.detach().cpu()
                          for n, p in model.named_parameters()})
@@ -257,3 +258,173 @@ def test_small_model_trains_on_the_card_like_on_the_cpu(cuda):
     # (g / (|g| + eps)): the two devices' parameters stay within 2.5 lr
     for name, p in p_cpu.items():
         assert (p_gpu[name] - p).abs().max().item() <= 2.5e-3, name
+
+
+# ---- l2_topk_rf: int8 refs-outer top-k, exact ----
+
+def _int8_case(b, n, d, pack, seed, dev):
+    """Queries and refs with the values ``pack`` admits (pack 1: the whole
+    int8 range), duplicated rows (exact ties), +inf rows; refs packed."""
+    from rag_snvbert_tpu_torch.ops.planar import pack_planar
+
+    gen = torch.Generator().manual_seed(seed)
+    if pack == 1:
+        lo, hi = -128, 128
+    else:
+        lo, hi = 0, 1 << (8 // pack)
+    r = torch.randint(lo, hi, (n, d), generator=gen, dtype=torch.int8)
+    q = torch.randint(lo, hi, (b, d), generator=gen, dtype=torch.int8)
+    if n > 8:
+        r[n // 2: n // 2 + 4] = r[:4]            # exact duplicates
+        q[: min(b, 4)] = r[: min(b, 4)]          # queries on those rows
+    norms = (r.double() ** 2).sum(1).float()
+    if n > 8:
+        norms[1] = norms[-3] = float("inf")
+    refs = r if pack == 1 else pack_planar(r, pack)
+    return q.to(dev), refs.to(dev), norms.to(dev)
+
+
+RF_CASES = [  # (b, n, d, pack, k): N off the 64-row tile, N < k, odd d
+    (1, 5, 1, 1, 10), (33, 130, 31, 1, 10), (33, 1000, 1030, 1, 128),
+    (1, 3000, 2040, 1, 1), (33, 700, 2040, 8, 10), (33, 257, 1030, 4, 128),
+    (1, 129, 31, 2, 10), (33, 70, 1, 8, 128), (33, 2048, 1030, 1, 1),
+    (64, 4100, 2040, 8, 128), (33, 65, 300, 2, 1),
+]
+
+
+@pytest.mark.parametrize("b,n,d,pack,k", RF_CASES)
+def test_l2_topk_rf_kernel_matches_plain_exactly(cuda, b, n, d, pack, k):
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import (l2_topk_rf,
+                                                      l2_topk_rf_plain)
+
+    q, refs, norms = _int8_case(b, n, d, pack, 7, cuda)
+    before = ops.launch_counts()["l2_topk_rf"]
+    vals, ids = l2_topk_rf(q, refs, norms, k, pack=pack)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["l2_topk_rf"] == before + 1
+    rv, ri = l2_topk_rf_plain(q, refs, norms, k, pack=pack)
+    # integer distances: ids and values exactly equal
+    assert torch.equal(ids, ri), (ids.cpu(), ri.cpu())
+    assert torch.equal(vals, rv)
+    again = l2_topk_rf(q, refs, norms, k, pack=pack)
+    assert torch.equal(again[0], vals) and torch.equal(again[1], ids)
+
+
+def test_l2_topk_rf_all_ties_and_inf_rows(cuda):
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import l2_topk_rf
+
+    r = torch.ones(300, 64, dtype=torch.int8, device=cuda)
+    norms = torch.full((300,), 64.0, device=cuda)
+    norms[:10] = float("inf")
+    q = torch.zeros(5, 64, dtype=torch.int8, device=cuda)
+    vals, ids = l2_topk_rf(q, r, norms, 128)
+    assert ids[0].tolist() == list(range(10, 138))
+    assert bool((vals == 64.0).all())
+    # fewer finite rows than k: the +inf rows follow in id order
+    norms[20:] = float("inf")
+    vals, ids = l2_topk_rf(q, r, norms, 20)
+    assert ids[0].tolist() == list(range(10, 20)) + list(range(10))
+    assert bool(torch.isinf(vals[:, 10:]).all())
+    # fewer rows than k: (+inf, -1) past the last row
+    vals, ids = l2_topk_rf(q, r[:3], norms[:3].clone().fill_(64.0), 5)
+    assert ids[0].tolist() == [0, 1, 2, -1, -1]
+
+
+def test_l2_topk_rf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import l2_topk_rf
+
+    r = torch.zeros(16, 256, dtype=torch.int8, device=cuda)
+    n = torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        l2_topk_rf(r.float(), r.float(), n, 1)
+    with pytest.raises(ValueError, match="pack >= 4"):
+        l2_topk_rf(r, r, n, 1, pack=2, compute="int4")
+    with pytest.raises(ValueError, match="k="):
+        l2_topk_rf(r, r, n, 129)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        l2_topk_rf(r[:, :40], r[:, :100], n, 1, pack=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        w = torch.zeros(4, 4000, dtype=torch.int8, device=cuda)
+        l2_topk_rf(w, w, n[:4], 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        l2_topk_rf(r.t()[:16], r.t()[:16].contiguous(), n, 1)
+    w = r[:, :64].contiguous()
+    vals, ids = l2_topk_rf(w, w, n, 3, compute="int4")
+    assert ids[0].tolist() == [0, 1, 2]
+
+
+def _token_cfg():
+    from rag_snvbert_tpu_torch.config import PRESETS
+
+    cfg = PRESETS["v17_token_rag"]
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dims=32, n_layers=2, attn_heads=4, seq_len=138,
+        dropout=0.0))
+
+
+def test_small_token_model_trains_on_the_card_like_on_the_cpu(cuda):
+    from rag_snvbert_tpu_torch.config import build_model
+    from rag_snvbert_tpu_torch.data.pipeline import WindowDataset
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.train import retrieval, step
+    from rag_snvbert_tpu_torch.train.schedule import make_optimizer
+
+    cfg = _token_cfg()
+    b = make_bundle(n_train_samples=8, n_ref_samples=24, n_sites=256,
+                    n_windows=2, seed=5)
+    ds = WindowDataset(b.train, b.panel, b.freq, b.window.window_info,
+                       b.vocab, ref_vcf=b.ref, seq_len=138)
+    meta = ds.windows[0]
+    np_batch = ds.make_batch(meta, np.arange(6), 1, 0, pad_to=8, packed=True)
+    toks, _, valid = ds.window_ref_tokens(meta, pad_haps_to=64)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, b.vocab.size, device=dev, seed=2)
+        model.bert.rag_fusion.drop.rate = 0.0
+        t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+        ctx = retrieval.build_token_window_ctx(
+            t(toks).long(), t(ds.window_mask(meta, 1, 0)), valid=t(valid))
+        batch = {k: t(v) for k, v in np_batch.items()}
+        ops.reset_launches()
+        opt = make_optimizer(model, 1e-3, 2e-3, 10)
+        stats = step.train_step(model, opt, batch, ctx, step.StepConfig())
+        segs = retrieval.retrieve_tokens(step.expand_packed(batch), ctx)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == {"attention": 0,
+                                           "attention_bwd": 0, "l2_topk": 0,
+                                           "l2_topk_rf": 2}
+        results[dev] = (stats["loss"].item(), stats["grad_norm"].item(),
+                        segs["rag_seg_h1"].cpu(),
+                        {n: p.detach().cpu()
+                         for n, p in model.named_parameters()})
+    (l_gpu, n_gpu, s_gpu, p_gpu), (l_cpu, n_cpu, s_cpu, p_cpu) = \
+        results["cuda"], results["cpu"]
+    assert torch.equal(s_gpu, s_cpu)           # exact search on both
+    # float32 on both sides (no TF32), other summation orders, two layers
+    # deep: the loss to 1e-5 and the raw gradient norm to 1e-4 relative
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(n_gpu - n_cpu) <= 1e-4 * n_cpu
+    # one Adam step of lr 1e-3: elements whose gradient is float32 noise can
+    # move by a different fraction of lr on the two devices
+    for name, p in p_cpu.items():
+        assert (p_gpu[name] - p).abs().max().item() <= 2.5e-3, name
+
+
+def test_token_ids_beyond_int8_raise_on_the_card(cuda):
+    from rag_snvbert_tpu_torch.config import build_model
+    from rag_snvbert_tpu_torch.train import retrieval
+
+    ref = torch.full((40, 48), 5, dtype=torch.long, device=cuda)
+    ref[3, 0] = 200
+    ctx = retrieval.build_token_window_ctx(
+        ref, torch.zeros(48, dtype=torch.int32, device=cuda))
+    assert ctx.ref_search is None
+    batch = {"hap_1": ref[:2], "hap_2": ref[2:4]}
+    with pytest.raises(ValueError, match="int8"):
+        retrieval.retrieve_tokens(batch, ctx)
+    # the plain version on request only
+    out = retrieval.retrieve_tokens(batch, ctx, use_kernel=False)
+    assert out["rag_seg_h1"].shape == (2, 1, 48)
+    with pytest.raises(ValueError, match="fit int8"):
+        retrieval.check_int8_vocab(build_model(_token_cfg(), 200))

@@ -90,8 +90,10 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
                        attention_plain(q, k, v, 0.2))
     r = torch.from_numpy(rng.standard_normal((9, 16), np.float32))
     ops.l2_topk(r[:3], r, (r * r).sum(-1), 2)
+    ri = torch.from_numpy(rng.integers(-9, 9, (9, 16)).astype(np.int8))
+    ops.l2_topk_rf(ri[:3], ri, (ri.float() ** 2).sum(-1), 2)
     assert ops.launch_counts() == {"attention": 0, "attention_bwd": 0,
-                                   "l2_topk": 0}
+                                   "l2_topk": 0, "l2_topk_rf": 0}
 
 
 def test_seeded_weights_are_reproducible_and_leave_global_rng_alone():

@@ -495,8 +495,8 @@ def test_resumed_run_draws_what_an_uninterrupted_one_would(tmp_path):
 def test_trainer_paths_left_for_later_slices_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A 7"):
         _trainer(tmp_path, 1, shard_ctx=True)
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        _trainer(tmp_path, 1, rag_mode="token")
+    with pytest.raises(ValueError, match="rag_mode"):
+        _trainer(tmp_path, 1, rag_mode="tokens")
     with pytest.raises(NotImplementedError, match="profile"):
         _trainer(tmp_path, 1, profile_dir=str(tmp_path / "p"))
     with pytest.raises(NotImplementedError, match="CLI"):
