@@ -141,6 +141,13 @@ def bound(bytes_moved: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rates(flop: float, ms: float, b_ms: float, lib_ms: float) -> str:
+    """Achieved rate, share of the bound and the ratio to the library call
+    of a kernel that takes ``ms`` for ``flop`` operations."""
+    return (f"{flop / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound, "
+            f"{ms / lib_ms:.3f}x the library call")
+
+
 def phase_attention(gen) -> dict:
     import torch.nn.functional as F
 
@@ -157,15 +164,19 @@ def phase_attention(gen) -> dict:
           f"(tol {ATTN_TOL:.3e}), finite {bool(torch.isfinite(out).all())}")
     check(err <= ATTN_TOL and bool(torch.isfinite(out).all()),
           "attention kernel disagrees with its plain version")
+    check(torch.equal(out, attention(q, k, v, scale)),
+          "attention runs are not bit-identical")
     ms = time_ms(lambda: attention(q, k, v, scale), 20)
     plain_ms = time_ms(lambda: attention_plain(q, k, v, scale), 3, 1)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, scale=scale), 20)
     b, h, l, hd = ATTN_SHAPE
-    b_ms, by = bound(4 * b * h * l * hd * 2, 4 * b * h * l * l * hd)
+    flop = 4 * b * h * l * l * hd
+    b_ms, by = bound(4 * b * h * l * hd * 2, flop)
     print(f"attention: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
           f"library_ms {lib_ms:.4f} (scaled_dot_product_attention) "
-          f"bound_ms {b_ms:.4f} ({by})")
+          f"bound_ms {b_ms:.4f} ({by}); rerun bit-identical; "
+          + rates(flop, ms, b_ms, lib_ms))
     return {"name": "attention", "route": "cuda",
             "source": "rag_snvbert_tpu_torch/csrc/attention.cu",
             "replaces": "rag_snvbert_tpu/models/transformer.py:99",
@@ -190,6 +201,10 @@ def phase_attention_bwd(gen) -> dict:
     print(f"attention lse {list(BWD_SHAPE)}: max_abs_err {lse_err:.3e} "
           f"(tol {lse_tol:.3e})")
     check(lse_err <= lse_tol, "attention forward LSE disagrees with plain")
+    out2, lse2 = attention_fwd(q, k, v, scale)
+    check(torch.equal(out, out2) and torch.equal(lse, lse2),
+          "attention forward runs with the LSE are not bit-identical")
+    del out2, lse2
     got = attention_bwd(q, k, v, out, lse, do, scale)
     torch.cuda.synchronize()
     want = attention_bwd_plain(*(x.float() for x in (q, k, v, out)), lse,
@@ -222,11 +237,12 @@ def phase_attention_bwd(gen) -> dict:
     b, h, l, hd = BWD_SHAPE
     # q, k, v, o, dO in and dq, dk, dv out (bf16), the LSE in (fp32); the
     # five products of the function: 10 * BH * L^2 * hd.
-    b_ms, by = bound(8 * b * h * l * hd * 2 + b * h * l * 4,
-                     10 * b * h * l * l * hd)
+    flop = 10 * b * h * l * l * hd
+    b_ms, by = bound(8 * b * h * l * hd * 2 + b * h * l * 4, flop)
     print(f"attention_bwd: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
           f"library_ms {lib_ms:.4f} (scaled_dot_product_attention fwd+bwd "
-          f"minus fwd) bound_ms {b_ms:.4f} ({by})")
+          f"minus fwd) bound_ms {b_ms:.4f} ({by}); "
+          + rates(flop, ms, b_ms, lib_ms))
     return {"name": "attention_bwd", "route": "cuda",
             "source": "rag_snvbert_tpu_torch/csrc/attention_bwd.cu",
             "replaces": "rag_snvbert_tpu/models/transformer.py:141",
@@ -1048,10 +1064,15 @@ def main() -> None:
     report = _build.build()
     print(f"kernel build: {time.perf_counter() - t:.2f} s wall for "
           f"{sorted(report) or 'nothing (already built)'}")
-    for name, rep in report.items():
-        regs = [ln.strip() for ln in rep["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"  {name}: {rep['seconds']:.2f} s; " + "; ".join(regs))
+    for name in _build.KERNELS:
+        took = f"{report[name]:.2f} s" if name in report else "built before"
+        print(f"  {name}: {took}; ptxas per kernel (registers, spill "
+              f"stores/loads bytes): "
+              + "; ".join(f"{k} {r}, {st}/{ld}" for k, r, st, ld
+                          in _build.ptxas_entries(name)))
+        for line in _build.ptxas_log(name).splitlines():
+            if "Performance Loss" in line:
+                print(f"    {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,458 @@
+// Hopper (sm_90a) building blocks shared by attention.cu and
+// attention_bwd.cu: mbarriers, TMA tile loads through a CUtensorMap, the
+// register hand-over between warpgroups (setmaxnreg), wgmma shared-memory
+// descriptors, and the m64nNk16 bf16 wgmma products with fp32 accumulators.
+//
+// Tile format.  Every [rows, HD] bf16 tile in shared memory is HD / kCols
+// "panels" of [rows, kCols], one after another; a panel row is kSwizzle
+// bytes (128 for HD >= 64, 64 for HD = 32: a TMA box's inner dimension is
+// at most the swizzle width), swizzled by the TMA load exactly as wgmma's
+// matching layout type expects.  Panels start on 1024-byte boundaries (the
+// 128-byte swizzle repeats every 8 rows = 1024 bytes and is computed from
+// the address bits, so a tile must not start mid-pattern).
+//
+// Descriptor fields (PTX ISA "Matrix Descriptor Format"; CUTLASS's
+// make_gmma_desc is the reference for which stride goes where):
+//   bits  0-13  start address >> 4
+//   bits 16-29  leading-dimension byte offset (LBO) >> 4
+//   bits 32-45  stride-dimension byte offset (SBO) >> 4
+//   bits 62-63  layout: 1 = 128-byte swizzle, 2 = 64-byte swizzle
+// K-major operand (the 16-element K step is contiguous): SBO = 8 rows =
+//   8 * kSwizzle bytes; LBO is unused with a swizzle (set to 1); a K step
+//   inside a panel adds its 32 bytes to the start address, the next panel
+//   starts rows * kSwizzle bytes further.
+// MN-major operand (the tile's rows are the K dimension, the N columns are
+//   contiguous: B of O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q):
+//   SBO = 8 rows of K = 8 * kSwizzle bytes, LBO = the next panel of N
+//   columns = rows * kSwizzle bytes; a K step of 16 rows adds
+//   16 * kSwizzle bytes.  The instruction's transpose-B immediate is 1.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda link (see below)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+template <int HD>
+struct TileFmt {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head dim");
+  static constexpr int kSwizzle = HD >= 64 ? 128 : 64;  // bytes a panel row
+  static constexpr int kCols = kSwizzle / 2;            // bf16 a panel row
+  static constexpr int kPanels = HD / kCols;
+  static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : 2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Must follow the inits before any other thread uses the barriers.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces ``bytes`` of TMA traffic to come.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// One arrival (release: this thread's shared stores are visible to the
+// threads that wait for the phase).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed.  A phase that
+// has not completed after ~2^34 cycles (seconds; a tile arrives in
+// microseconds) is a fault: the thread traps, so the launch fails with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// ---- TMA ----
+
+// The box of ``map`` at (column c0, row c1, stream*head c2) into ``dst``;
+// completion is counted on ``bar`` in bytes.  The map must live in the
+// kernel's parameter space (a __grid_constant__ argument): a pointer to a
+// host copy faults.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Rows [row0, row0 + rows) of head ``head`` of a [bh, L, HD] map whose box
+// is [rows, kCols]: one TMA load per panel.
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int row0,
+                                         int head) {
+  using F = TileFmt<HD>;
+#pragma unroll
+  for (int p = 0; p < F::kPanels; ++p) {
+    tma_load_3d(dst + p * rows * F::kSwizzle, map, bar, p * F::kCols, row0,
+                head);
+  }
+}
+
+// ---- warpgroups ----
+
+// threadIdx.x / 128, broadcast from lane 0 so that ptxas sees a
+// warp-uniform value: a branch on a value it cannot prove uniform is a
+// "divergent path", and a wgmma inside one is serialized (ptxas C7520).
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffff, static_cast<int>(threadIdx.x / 128), 0);
+}
+
+// setmaxnreg: every warp of the warpgroup executes it; roles must be whole
+// warpgroups (consumers 0..n-1, the producer after them) and each role's
+// branch must run to the end of the kernel, or ptxas ignores it.
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Named barriers (ids 1..15; 0 is __syncthreads).  bar_sync waits until
+// ``count`` threads have reached barrier ``id`` through bar_sync or
+// bar_arrive; bar_arrive counts this thread and does not wait.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- wgmma ----
+//
+// Order around each group of products (CUTLASS's): fence_regs() on its
+// accumulators and register A operands, so that the compiler cannot sink
+// their last ordinary writes past the next line; wgmma_fence(); the
+// products; wgmma_commit(); later wgmma_wait<N>(), then fence_regs() on
+// the accumulators it retired, so that the compiler reads them only after
+// the wait.  An ordinary instruction that touches those registers between
+// the fence and the wait makes ptxas serialize every wgmma of the kernel
+// (its C7514/C7515 notes), as does a wgmma on a path it cannot prove
+// warp-uniform (C7520) or a shortage of registers (C7512).
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand: rows [r0, r0 + 64 or N) of a ``rows``-row tile at shared
+// address ``tile``, K step ``kk`` (columns 16 kk .. 16 kk + 15).
+template <int HD>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0,
+                                           int kk) {
+  using F = TileFmt<HD>;
+  const int col = kk * 16;
+  const uint32_t addr = tile + (col / F::kCols) * rows * F::kSwizzle +
+                        r0 * F::kSwizzle + (col % F::kCols) * 2;
+  return make_desc(addr, 16, 8 * F::kSwizzle, F::kLayout);
+}
+
+// MN-major operand: K step ``kk`` (tile rows 16 kk .. 16 kk + 15), all HD
+// columns as N.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
+  using F = TileFmt<HD>;
+  return make_desc(tile + kk * 16 * F::kSwizzle, rows * F::kSwizzle,
+                   8 * F::kSwizzle, F::kLayout);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma.mma_async m64nNk16, bf16 inputs, fp32 accumulator d (N / 2
+// registers a thread).  ss: A and B from shared memory (descriptors);
+// rs: A from registers (the m16n8k16 A fragment of the warp's 16 rows, as
+// the accumulator of the previous product packs it), B from shared memory.
+// ``acc`` = 0 overwrites d; TB is the transpose-B immediate (0: B K-major,
+// 1: MN-major).  Accumulator layout: d[4j + 2i + c] is row 16 * warp +
+// lane / 4 + 8 i, column 8 j + 2 * (lane % 4) + c.  The bodies differ only
+// in N and the register count.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(
+      float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+          "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(
+      float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(
+      float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+          "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(
+      float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+          "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<176> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(
+      float (&d)[88], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %90, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87"
+        "}, %88, %89, p, 1, 1, 0, %91;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+// ---- host: tensor maps ----
+//
+// cuTensorMapEncodeTiled is a driver-API function; it is fetched through
+// the runtime (cudaGetDriverEntryPoint), so the libraries link against
+// cudart alone.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// A 3-D map [bh, L, HD] (HD innermost) over a contiguous bf16 tensor, box
+// [1, box_rows, kCols].  Three dimensions, not a 2-D [bh * L, HD]: rows at
+// or past L of a head read as zeros instead of the next head's rows.
+// Returns false if the driver refuses it.
+template <int HD>
+inline bool make_map(CUtensorMap* map, const void* base, int bh, int L,
+                     int box_rows) {
+  using F = TileFmt<HD>;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)L, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)L * HD * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)F::kCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                F::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Dynamic shared memory rounded up to the 1024-byte swizzle period (the
+// launch asks for 1024 bytes more than the layout needs).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  const uint32_t off = smem_u32(p) & 1023u;
+  return off ? p + (1024 - off) : p;
+}
+
+}  // namespace hopper

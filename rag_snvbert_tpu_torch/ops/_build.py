@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``_build/lib<name>-<hash>.so`` at first use (the hash is of the source, so
-an edited kernel is rebuilt).  ``build`` starts one ``nvcc`` per source at
-once and waits for all of them.  Nothing here runs at import time.
+``_build/lib<name>-<hash>.so`` at first use (the hash is of the source and
+of the shared headers ``csrc/*.cuh``, so an edited kernel is rebuilt), with
+nvcc's report (``-Xptxas -v``: registers, spills) beside it as ``.log``.
+``build`` starts one ``nvcc`` per source at once and waits for all of them.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,15 +45,18 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names=KERNELS) -> dict[str, dict]:
+def build(names=KERNELS) -> dict[str, float]:
     """Compile every named kernel that is not built yet, all at once.
 
-    Returns ``{name: {"seconds": wall time, "ptxas": compiler report}}``
-    for the ones compiled here; raises with nvcc's output on failure."""
+    Returns ``{name: wall seconds}`` for the ones compiled here (their
+    compiler reports: ``ptxas_log``); raises with nvcc's output on
+    failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = {}
@@ -70,11 +76,47 @@ def build(names=KERNELS) -> dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        report[name] = time.perf_counter() - t0
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def ptxas_log(name: str) -> str:
+    """nvcc's report of the current build of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def ptxas_entries(name: str) -> list[tuple[str, int, int, int]]:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of each
+    kernel in the current build of ``csrc/<name>.cu``."""
+    entries, spills = [], (0, 0)
+    for line in ptxas_log(name).splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            kernel = _demangle(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            entries.append((kernel, int(m.group(1)), *spills))
+    return entries
+
+
+def _demangle(symbol: str) -> str:
+    """``attention_fwd_kernel<128>`` from an Itanium-mangled kernel name
+    (namespaces dropped, one integer template argument kept)."""
+    if not symbol.startswith("_Z"):
+        return symbol
+    i, name = (3 if symbol.startswith("_ZN") else 2), symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
+    arg = re.match(r"ILi(\d+)E", symbol[i:])
+    return f"{name}<{arg.group(1)}>" if arg else name
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:

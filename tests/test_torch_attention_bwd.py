@@ -1,6 +1,7 @@
 """The attention backward's plain version and ``AttentionFn`` against
 ``jax.grad`` through the splash-attention Pallas kernel (interpret mode, as
-tests/test_model_shapes.py runs it), at ragged L and head dims 32 and 128.
+tests/test_model_shapes.py runs it), at ragged L (one case one past the
+forward kernel's key tile) and head dims 32 and 128.
 On the CPU ``AttentionFn`` runs ``attention_fwd_plain`` and
 ``attention_bwd_plain``: these tests hold its wiring (saved tensors, scale,
 output dtypes, no gradient for ``scale``) as well as the arithmetic."""
@@ -17,7 +18,10 @@ from rag_snvbert_tpu_torch.ops.attention import (
     LOG2E, AttentionFn, attention, attention_bwd_plain, attention_fwd_plain)
 from test_torch_modules import torch_one_thread  # noqa: F401  (autouse)
 
-CASES = [((1, 2, 50, 32), 128), ((2, 1, 130, 128), 128)]
+# L = 177 is one past the forward kernel's 176-key tile, where its last
+# tile holds a single valid key.
+CASES = [((1, 2, 50, 32), 128), ((2, 1, 130, 128), 128),
+         ((1, 1, 177, 128), 128)]
 
 
 def _inputs(shape, seed):

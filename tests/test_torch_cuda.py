@@ -37,9 +37,16 @@ def _bf16(shape, gen, dev):
     return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("shape", [
-    (1, 1, 1, 32), (2, 3, 63, 64), (2, 3, 64, 128), (1, 2, 65, 128),
-    (3, 1, 1030, 128), (1, 4, 200, 32),
+# Sequence lengths at the kernels' tile edges: the forward's 128-query
+# blocks (64 rows a consumer warpgroup) and 176-key tiles, the backward's
+# 128-row blocks and 64-row streamed tiles: L = 1, tile - 1, tile, tile + 1,
+# 2 tile + 1, and the main paths' 1030.
+EDGE_LS = (1, 63, 64, 65, 127, 128, 129, 175, 176, 177, 257, 353, 1030)
+EDGE_SHAPES = [(2, 3, l, hd) for hd in (32, 64, 128) for l in EDGE_LS]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES + [
+    (1, 1, 1, 32), (1, 2, 65, 128), (3, 1, 1030, 128), (1, 4, 200, 32),
 ])
 def test_attention_kernel_matches_plain(cuda, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -67,8 +74,42 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         attention(t, t, t, 1.0)
 
 
-BWD_SHAPES = [(1, 1, 1, 32), (2, 3, 63, 64), (1, 2, 64, 128),
-              (2, 1, 65, 32), (1, 3, 1030, 128), (1, 2, 130, 64)]
+def test_attention_kernel_runs_are_bit_identical(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (_bf16((2, 3, 1030, 128), gen, cuda) for _ in range(3))
+    first = attention_fwd(q, k, v, 0.1)
+    second = attention_fwd(q, k, v, 0.1)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd", (32, 64, 128))
+@pytest.mark.parametrize("l", (65, 177))
+def test_attention_kernels_keep_to_their_head(cuda, hd, l):
+    """Head 1 with NaN in the K, V and dO of head 2 and 1e4 in head 3's:
+    its O, LSE, dQ, dK and dV equal those of head 1 run alone, bit for bit
+    (the ragged rows past L of a head must read as zeros, not as the next
+    head's rows)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, do = (_bf16((1, 4, l, hd), gen, cuda) for _ in range(4))
+    for x in (k, v, do):
+        x[:, 2] = float("nan")
+        x[:, 3] = 1e4
+    scale = hd ** -0.5
+    out, lse = attention_fwd(q, k, v, scale)
+    grads = attention_bwd(q, k, v, out, lse, do, scale)
+    one = [x[:, 1:2].contiguous() for x in (q, k, v, do)]
+    alone_out, alone_lse = attention_fwd(*one[:3], scale)
+    alone = attention_bwd(*one[:3], alone_out, alone_lse, one[3], scale)
+    assert torch.equal(out[:, 1:2], alone_out)
+    assert torch.equal(lse[:, 1:2], alone_lse)
+    for a, b in zip(grads, alone):
+        assert torch.equal(a[:, 1:2], b)
+    assert bool(torch.isfinite(out[:, :2]).all())
+
+
+BWD_SHAPES = EDGE_SHAPES + [(1, 1, 1, 32), (1, 2, 64, 128), (2, 1, 65, 32),
+                            (1, 3, 1030, 128), (1, 2, 130, 64)]
 
 
 @pytest.mark.parametrize("shape", BWD_SHAPES)
