@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -52,6 +53,7 @@ INT8_OP_PER_S = 1979e12
 ATTN_SHAPE = (64, 3, 1030, 128)        # [2B, H, L, hd] at batch 32
 BWD_SHAPE = (48, 3, 1030, 128)         # [2B, H, L, hd] at training batch 24
 L2_B, L2_N, L2_D = 64, 2048, 1030 * 384
+L2_B_TRAIN = 48                        # [2B] at the training batch of 24
 L2_PAD_ROWS = 40
 # Attention: the kernel rounds P to bf16 for the P.V product and writes O
 # in bf16 (2^-8 relative); |O| stays below ~4 for unit-normal q, k, v.
@@ -132,6 +134,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, calls: int = 5) -> dict[str, float]:
+    """Mean device ms per call of each kernel that ``fn`` launches, from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def short(key: str) -> str:
+        m = re.search(r"(\w+)\(", key.replace("(anonymous namespace)::", ""))
+        return m.group(1) if m else key[:40]
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {short(e.key): e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def bound(bytes_moved: float, ops: float,
@@ -298,6 +320,16 @@ def phase_l2(gen) -> dict:
         scale = qn[:, None] + norms[ri.long()]
         max_err = max(max_err, _tie_aware(f"k={k}", vals, ids, rv, ri,
                                           scale, dist_of))
+        again = l2_topk(q, refs, norms, k)
+        check(torch.equal(again[0], vals) and torch.equal(again[1], ids),
+              f"l2_topk runs are not bit-identical (k={k})")
+        # the training batch's shape: the first 48 queries (gather takes
+        # an index of fewer rows: dist_of serves them as it is)
+        tv, ti = l2_topk(q[:L2_B_TRAIN].contiguous(), refs, norms, k)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _tie_aware(
+            f"B={L2_B_TRAIN} k={k}", tv, ti, rv[:L2_B_TRAIN],
+            ri[:L2_B_TRAIN], scale[:L2_B_TRAIN], dist_of))
         if k == 1:
             check(bool((ids[:, 0] == pick.int()).all()),
                   "l2_topk missed a planted nearest row")
@@ -317,7 +349,11 @@ def phase_l2(gen) -> dict:
                      + L2_B * 8, 2 * L2_B * L2_N * L2_D)
     print(f"l2_topk q [{L2_B}, {L2_D}] refs [{L2_N}, {L2_D}] bf16 k=1: "
           f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-          f"{lib_ms:.4f} (matmul+topk) bound_ms {b_ms:.4f} ({by})")
+          f"{lib_ms:.4f} (matmul+topk) bound_ms {b_ms:.4f} ({by}); reruns "
+          f"bit-identical; B = {L2_B} and {L2_B_TRAIN}")
+    print("l2_topk device ms by kernel: " + ", ".join(
+        f"{n} {t:.4f}" for n, t in kernel_ms(
+            lambda: l2_topk(q, refs, norms, 1)).items()))
 
     # Constructed exact ties: rows 1000..1009 duplicate rows 0..9 and the
     # queries equal rows 0..9, so each query's two nearest rows tie exactly
@@ -378,6 +414,9 @@ def _rf_case(name, q, refs, norms, k, pack, d, lib_refs, iters) -> dict:
           f"int8 pack {pack} k={k}: kernel_ms {ms:.4f} plain_ms "
           f"{plain_ms:.4f} library_ms {lib_ms:.4f} (_int_mm+norms+topk "
           f"over unpacked refs) bound_ms {b_ms:.4f} ({by})")
+    print(f"l2_topk_rf {name} device ms by kernel: " + ", ".join(
+        f"{n} {t:.4f}" for n, t in kernel_ms(
+            lambda: l2_topk_rf(q, refs, norms, k, pack=pack)).items()))
     return {"shape": name, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": lib_ms}
@@ -417,6 +456,10 @@ def phase_l2_rf(gen) -> dict:
     del packed
     cases.append(_rf_case("index pack=1", qb, bits, norms, 10, 1, d, bits,
                           10))
+    # the product's share of the yardstick: it also writes the [1024,
+    # 664648] int32 matrix that a fused kernel never does
+    mm_ms = time_ms(lambda: torch._int_mm(qb, bits.t()), 10)
+    print(f"l2_topk_rf index: torch._int_mm alone {mm_ms:.4f} ms")
     main = cases[0]
     return {"name": "l2_topk_rf", "route": "cuda",
             "source": "rag_snvbert_tpu_torch/csrc/l2_topk_rf.cu",

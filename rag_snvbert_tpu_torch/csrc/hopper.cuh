@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by attention.cu and
-// attention_bwd.cu: mbarriers, TMA tile loads through a CUtensorMap, the
+// Hopper (sm_90a) building blocks shared by the kernels of this directory:
+// mbarriers, TMA tile loads through a CUtensorMap (3-D for the attention
+// kernels' [heads, L, hd], 2-D for the search kernels' matrices), the
 // register hand-over between warpgroups (setmaxnreg), wgmma shared-memory
-// descriptors, and the m64nNk16 bf16 wgmma products with fp32 accumulators.
+// descriptors, the m64nNk16 bf16 wgmma products with fp32 accumulators and
+// the m64nNk32 int8 products with int32 accumulators.
 //
 // Tile format.  Every [rows, HD] bf16 tile in shared memory is HD / kCols
 // "panels" of [rows, kCols], one after another; a panel row is kSwizzle
@@ -115,6 +117,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box of a 2-D ``map`` at (column c0, row c1) into ``dst``.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma and TMA read shared memory through the asynchronous proxy: bytes
+// that ordinary stores (or cp.async) put there are ordered before such a
+// read only by this fence, executed by the writer between its stores and
+// the barrier arrival that hands the bytes over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Rows [row0, row0 + rows) of head ``head`` of a [bh, L, HD] map whose box
 // is [rows, kCols]: one TMA load per panel.
 template <int HD>
@@ -194,6 +215,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -219,6 +246,13 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0,
   const uint32_t addr = tile + (col / F::kCols) * rows * F::kSwizzle +
                         r0 * F::kSwizzle + (col % F::kCols) * 2;
   return make_desc(addr, 16, 8 * F::kSwizzle, F::kLayout);
+}
+
+// K-major operand in one 128-byte-swizzled panel (rows of 128 bytes: 64
+// bf16 or 128 int8 columns) at shared address ``panel`` (1024-aligned):
+// rows [r0, r0 + 64 or N), K step ``kk`` (32 bytes: 16 bf16 or 32 int8).
+__device__ __forceinline__ uint64_t desc_k128(uint32_t panel, int r0, int kk) {
+  return make_desc(panel + r0 * 128 + kk * 32, 16, 1024, 1);
 }
 
 // MN-major operand: K step ``kk`` (tile rows 16 kk .. 16 kk + 15), all HD
@@ -320,6 +354,37 @@ struct Wgmma<64> {
 template <>
 struct Wgmma<128> {
   template <int TB>
+  static __device__ __forceinline__ void ss(
+      float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+  template <int TB>
   static __device__ __forceinline__ void rs(
       float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
     asm volatile(
@@ -395,6 +460,58 @@ struct Wgmma<176> {
   }
 };
 
+// wgmma.mma_async m64nNk32, int8 inputs (both K-major in shared memory: the
+// integer products take no transpose), int32 accumulator d (N / 2 registers
+// a thread, the layout of the fp32 accumulators above).  A k32 step of
+// int8 is 32 bytes, as a k16 step of bf16 is: the descriptors' byte
+// arithmetic is the same.  The sums are exact (no saturation).
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<192> {
+  static __device__ __forceinline__ void ss(
+      int (&d)[96], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
+        "%90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p;\n}\n"
+        :
+          "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+          "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+          "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+          "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+          "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+          "+r"(d[95])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
 // ---- host: tensor maps ----
 //
 // cuTensorMapEncodeTiled is a driver-API function; it is fetched through
@@ -444,6 +561,30 @@ inline bool make_map(CUtensorMap* map, const void* base, int bh, int L,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 F::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                    : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map [rows, cols] (cols innermost, ``row_bytes`` from row to row: a
+// multiple of 16, the base on a 16-byte boundary) of 2-byte (bf16) or
+// 1-byte elements, box [box_rows, 128 bytes], 128-byte swizzle: one box is
+// one panel of desc_k128.  Rows at or past ``rows`` and columns at or past
+// ``cols`` read as zeros.  Returns false if the encoding is refused.
+inline bool make_map_2d(CUtensorMap* map, const void* base, bool bf16,
+                        uint64_t rows, uint64_t cols, uint64_t row_bytes,
+                        int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(bf16 ? 64 : 128),
+                             (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map,
+                bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

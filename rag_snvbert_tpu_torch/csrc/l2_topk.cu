@@ -16,133 +16,197 @@
 // 0.48 ms at 3.35 TB/s, against 1.04e11 FLOP (0.105 ms of tensor cores):
 // it is memory-bound.  The TPU kernel carried the d-axis sum across
 // sequential grid steps; GPU blocks run in no order, so the work is split:
-//   pass 1: grid (ref tile of 64, d split, query tile of 64).  Each block
-//     forms partial dots over its d chunk with mma.sync m16n8k16 (bf16 ->
-//     fp32; each 64-wide d step in a fresh accumulator, summed with IEEE
-//     adds) and writes them to a [splits, B, N] fp32 workspace.  Splitting
-//     d is what fills 132 SMs when B * N is only 64 * 2048.  Blocks of one
-//     split run side by side, so its query chunk is read from L2.
-//   pass 2: one block per query row sums the partials in a fixed order,
-//     forms distances in shared memory and extracts the k smallest by k
-//     rounds of a block-wide (distance, id) argmin.
-// No atomics: results are bit-identical from run to run.  Loads are
-// synchronous 16-byte loads; a cp.async/TMA pipeline is later work.
+//   pass 1, l2_partial_dots: grid (ref tile of 128 rows, d split, query
+//     tile of 64).  One block is a producer warpgroup and a consumer
+//     warpgroup.  One producer thread keeps a ring of kStages stages in
+//     flight by TMA: a stage is 128 columns of d (two 64-column panels,
+//     256 contiguous bytes of each row) of the 128 ref rows and of the 64
+//     queries, 48 KB, 128-byte swizzled, each stage under a "full" and an
+//     "empty" mbarrier.  Rows past N or B and columns past d are zeros
+//     from the tensor maps' bounds, not from checks in the kernel.  The
+//     consumer multiplies each stage with eight wgmma m64n128k16 (both
+//     operands K-major in shared memory) into a fresh accumulator
+//     (scale-d 0 on the first product) and adds that to the running sum
+//     with IEEE adds: the tensor cores' fp32 accumulation truncates, and
+//     one chain over a whole d chunk drifts by ~3e-5 of the distance
+//     scale, 25x the error of a float32 matmul.  With 128-column steps
+//     the k = 1 distances stay within 2.5e-7 of float64, relative to
+//     |q|^2 + |r|^2 (the float32 matmul of the plain version: 2.0e-6;
+//     chip_smoke.py prints both).  The partial dots go to a
+//     [splits, B, N] fp32 workspace.  Splitting d is what fills the SMs
+//     when B * N is only 64 * 2048: the wrapper picks the splits so that
+//     the grid is four full waves of one block an SM (16 ref tiles x 33
+//     splits = 4 x 132; one wave of 8 splits leaves 4 SMs idle and
+//     measured 0.6145 ms against 0.6000).  Blocks of one split run side by
+//     side, so the query chunk, loaded once per 128 ref rows, comes from
+//     L2.  The blocks of ref tile 0 also sum the squares of their query
+//     tiles where they sit in shared memory, per stage and then across
+//     stages, into a [splits, B] workspace.
+//   pass 2, l2_select: one block of 512 threads per query row sums |q|^2
+//     and the partial dots over the splits in split order, forms distances
+//     in shared memory and extracts the k smallest by k rounds of a
+//     block-wide (distance, id) argmin.  The shared-memory limits of both
+//     kernels are raised once a process, not once a call.
+// No atomics and every sum in a fixed order: reruns are bit-identical.
+// The consumer needs no setmaxnreg: at 256 threads a block, one block an
+// SM, every thread may hold 255 registers from the start.
+// Replaces the first design (four warps, mma.sync m16n8k16, synchronous
+// 16-byte loads of 64 x 64 tiles, |q|^2 re-read from device memory in
+// pass 2).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
 
 #include <climits>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kTileB = 64;    // queries per pass-1 block (16 per warp)
-constexpr int kTileN = 64;    // reference rows per pass-1 block
-constexpr int kTileD = 64;    // d step of the pass-1 loop
-constexpr int kLds = kTileD + 8;
-constexpr int kThreads1 = 128;
-constexpr int kThreads2 = 256;
+using namespace hopper;
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kTileB = 64;     // queries per pass-1 block: one m64 tile
+constexpr int kTileN = 128;    // reference rows per pass-1 block: wgmma's n
+constexpr int kPanels = 2;     // 64-column panels per stage
+constexpr int kStageD = 64 * kPanels;   // columns of d per stage
+constexpr int kStages = 4;
+constexpr int kThreads1 = 256;  // consumer warpgroup 0, producer warpgroup 1
+constexpr int kThreads2 = 512;
+constexpr int kQPanel = kTileB * 128;   // bytes
+constexpr int kRPanel = kTileN * 128;
+constexpr int kStageBytes = kPanels * (kQPanel + kRPanel);
+constexpr int kSmem1 = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+constexpr int kMaxN = 49152;   // pass 2: one float per ref row in shared memory
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [row0, row0 + 64) x columns [col0, col0 + 64) of a [rows, d] matrix
-// into shared memory; out-of-range rows and columns become zeros (d is a
-// multiple of 8, so a 16-byte vector is wholly in or out).
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int rows, int col0, int d) {
-  constexpr int kPerRow = kTileD / 8;
-  for (int i = threadIdx.x; i < 64 * kPerRow; i += kThreads1) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows && col0 + c < d) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d +
-                                            col0 + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLds + c) = val;
+// Sum of squares of 8 bf16 values.
+__device__ __forceinline__ float sq8(const uint4& raw, float s) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    s = fmaf(f.x, f.x, s);
+    s = fmaf(f.y, f.y, s);
   }
+  return s;
 }
 
-__global__ void __launch_bounds__(kThreads1)
-l2_partial_dots(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ r,
-                float* __restrict__ part, int B, int N, int d, int chunk) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[kTileB * kLds];
-  __shared__ __align__(16) __nv_bfloat16 Rs[kTileN * kLds];
+__global__ void __launch_bounds__(kThreads1, 1)
+l2_partial_dots(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_r,
+                float* __restrict__ part, float* __restrict__ qn_part, int B,
+                int N, int d, int chunk) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
   const int n0 = blockIdx.x * kTileN;
   const int split = blockIdx.y;
   const int b0 = blockIdx.z * kTileB;
   const int d0 = split * chunk;
   const int d1 = min(d0 + chunk, d);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int steps = (d1 - d0 + kStageD - 1) / kStageD;
+  const int wg = warpgroup();
 
-  float acc[kTileN / 8][4];
-#pragma unroll
-  for (int n = 0; n < kTileN / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-
-  const int row = warp * 16 + g;
-  for (int dk = d0; dk < d1; dk += kTileD) {
-    load_tile(Qs, q, b0, B, dk, d);
-    load_tile(Rs, r, n0, N, dk, d);
-    __syncthreads();
-    // A fresh accumulator per d step, added to the running sum with IEEE
-    // float adds: the tensor cores' fp32 accumulation truncates, and one
-    // chain over a whole d chunk (~800 mma steps) drifts by ~3e-5 of the
-    // distance scale (measured), 25x the error of a float32 matmul.
-    float step[kTileN / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTileN / 8; ++n) {
-      step[n][0] = step[n][1] = step[n][2] = step[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);   // one arrival per consumer warp
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 1) {
+    // ---- producer: one thread, TMA ----
+    if (threadIdx.x == 128) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        uint8_t* stage = smem + s * kStageBytes;
+        mbar_expect_tx(&full[s], kStageBytes);
 #pragma unroll
-    for (int ks = 0; ks < kTileD / 16; ++ks) {
-      const int c = ks * 16 + t * 2;
-      uint32_t a[4];
-      a[0] = ld_pair(Qs + row * kLds + c);
-      a[1] = ld_pair(Qs + (row + 8) * kLds + c);
-      a[2] = ld_pair(Qs + row * kLds + c + 8);
-      a[3] = ld_pair(Qs + (row + 8) * kLds + c + 8);
-#pragma unroll
-      for (int n = 0; n < kTileN / 8; ++n) {
-        const __nv_bfloat16* rr = Rs + (n * 8 + g) * kLds + c;
-        mma_bf16(step[n], a, ld_pair(rr), ld_pair(rr + 8));
+        for (int p = 0; p < kPanels; ++p) {
+          const int col = d0 + i * kStageD + p * 64;
+          tma_load_2d(stage + p * kQPanel, &tm_q, &full[s], col, b0);
+          tma_load_2d(stage + kPanels * kQPanel + p * kRPanel, &tm_r,
+                      &full[s], col, n0);
+        }
       }
     }
-#pragma unroll
-    for (int n = 0; n < kTileN / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[n][j] += step[n][j];
-    }
-    __syncthreads();
-  }
+  } else {
+    // ---- consumer ----
+    const int tid = threadIdx.x;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const bool norms = blockIdx.x == 0;   // this block sums |q|^2 too
+    const int qrow = tid >> 1;            // its half row of the query tile
+    const int half = tid & 1;
 
-  const int qb0 = b0 + row, qb1 = qb0 + 8;
+    float acc[kTileN / 2], step[kTileN / 2];
 #pragma unroll
-  for (int n = 0; n < kTileN / 8; ++n) {
+    for (int j = 0; j < kTileN / 2; ++j) acc[j] = 0.f;
+    float qsum = 0.f;
+
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const uint8_t* stage = smem + s * kStageBytes;
+      const uint32_t q_addr = smem_u32(stage);
+      const uint32_t r_addr = q_addr + kPanels * kQPanel;
+      fence_regs(step);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = n0 + n * 8 + t * 2 + j;
-      if (col >= N) continue;
-      if (qb0 < B) part[((size_t)split * B + qb0) * N + col] = acc[n][j];
-      if (qb1 < B) part[((size_t)split * B + qb1) * N + col] = acc[n][2 + j];
+      for (int p = 0; p < kPanels; ++p) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          Wgmma<kTileN>::template ss<0>(
+              step, desc_k128(q_addr + p * kQPanel, 0, kk),
+              desc_k128(r_addr + p * kRPanel, 0, kk), (p | kk) != 0);
+        }
+      }
+      wgmma_commit();
+      if (norms) {
+        // The swizzle permutes 16-byte groups inside a row: the sum over
+        // the row's eight groups does not care which is which.  Each
+        // thread takes four groups of each panel of its row, rotated by
+        // the row so that neighbouring threads hit other banks.
+        float ssum = 0.f;
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p) {
+          const uint4* row = reinterpret_cast<const uint4*>(
+              stage + p * kQPanel + qrow * 128 + half * 64);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) ssum = sq8(row[(j + qrow) & 3], ssum);
+        }
+        qsum += ssum;
+      }
+      wgmma_wait<0>();
+      fence_regs(step);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int j = 0; j < kTileN / 2; ++j) acc[j] += step[j];
+    }
+
+    if (norms) {
+      qsum += __shfl_xor_sync(0xffffffff, qsum, 1);
+      if (half == 0 && b0 + qrow < B) {
+        qn_part[(size_t)split * B + b0 + qrow] = qsum;
+      }
+    }
+    const int qb0 = b0 + warp * 16 + g, qb1 = qb0 + 8;
+#pragma unroll
+    for (int j = 0; j < kTileN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = n0 + j * 8 + t * 2 + c;
+        if (col >= N) continue;
+        if (qb0 < B) part[((size_t)split * B + qb0) * N + col] = acc[4 * j + c];
+        if (qb1 < B) {
+          part[((size_t)split * B + qb1) * N + col] = acc[4 * j + 2 + c];
+        }
+      }
     }
   }
 }
@@ -153,41 +217,18 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 }
 
 __global__ void __launch_bounds__(kThreads2)
-l2_select(const __nv_bfloat16* __restrict__ q, const float* __restrict__ part,
+l2_select(const float* __restrict__ part, const float* __restrict__ qn_part,
           const float* __restrict__ rnorm, float* __restrict__ vals,
-          int* __restrict__ ids, int B, int N, int d, int splits, int k) {
+          int* __restrict__ ids, int B, int N, int splits, int k) {
   extern __shared__ float dist[];   // [N]
   __shared__ float red_v[kThreads2 / 32];
   __shared__ int red_i[kThreads2 / 32];
-  __shared__ float qn_s;
   const int b = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  // |q|^2 of the bf16 query row, in a fixed order.
-  float s = 0.f;
-  const __nv_bfloat16* qr = q + (size_t)b * d;
-  for (int i = threadIdx.x * 8; i < d; i += kThreads2 * 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(qr + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      s = fmaf(f.x, f.x, s);
-      s = fmaf(f.y, f.y, s);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffff, s, off);
-  if (lane == 0) red_v[warp] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float tot = 0.f;
-    for (int w = 0; w < kThreads2 / 32; ++w) tot += red_v[w];
-    qn_s = tot;
-  }
-  __syncthreads();
-  const float qn = qn_s;
+  float qn = 0.f;   // every thread sums the same values in the same order
+  for (int sp = 0; sp < splits; ++sp) qn += qn_part[(size_t)sp * B + b];
 
   for (int n = threadIdx.x; n < N; n += kThreads2) {
     float dot = 0.f;
@@ -223,33 +264,53 @@ l2_select(const __nv_bfloat16* __restrict__ q, const float* __restrict__ part,
   }
 }
 
+// The two kernels' dynamic shared memory limits, raised once a process.
+cudaError_t set_limits() {
+  static cudaError_t result = [] {
+    cudaError_t err = cudaFuncSetAttribute(
+        l2_partial_dots, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem1);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(l2_select,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kMaxN * (int)sizeof(float));
+  }();
+  return result;
+}
+
 }  // namespace
 
-// q [B, d], r [N, d] bf16 contiguous and 16-byte aligned, d % 8 == 0;
-// rnorm [N] f32; part [splits, B, N] f32 workspace; vals [B, k] f32,
-// ids [B, k] int32.  chunk is a multiple of 64 with splits * chunk >= d.
-// Returns the CUDA error code of the launches (0 on success).
+// q [B, d], r [N, d] bf16 contiguous and 16-byte aligned, d % 8 == 0 (the
+// row stride TMA needs), N <= 49152; rnorm [N] f32; part: fp32 workspace
+// of splits * B * (N + 1) values (the partial dots [splits, B, N], then
+// the partial |q|^2 [splits, B]); vals [B, k] f32, ids [B, k] int32.
+// chunk is a multiple of 128 with splits * chunk >= d.  Returns the CUDA
+// error code of the launches (0 on success; cudaErrorInvalidValue also
+// when a tensor map cannot be encoded).
 extern "C" int l2_topk_bf16(const void* q, const void* r, const void* rnorm,
                             void* part, void* vals, void* ids, int B, int N,
                             int d, int splits, int chunk, int k,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunk % kStageD != 0 || N > kMaxN || d % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = set_limits();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tm_q, tm_r;
+  if (!make_map_2d(&tm_q, q, true, B, d, (uint64_t)d * 2, kTileB) ||
+      !make_map_2d(&tm_r, r, true, N, d, (uint64_t)d * 2, kTileN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  float* dots = static_cast<float*>(part);
+  float* qn_part = dots + (size_t)splits * B * N;
   const dim3 grid1((N + kTileN - 1) / kTileN, splits,
                    (B + kTileB - 1) / kTileB);
-  l2_partial_dots<<<grid1, kThreads1, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(r), static_cast<float*>(part), B, N,
-      d, chunk);
-  cudaError_t err = cudaGetLastError();
+  l2_partial_dots<<<grid1, kThreads1, kSmem1, s>>>(tm_q, tm_r, dots, qn_part,
+                                                   B, N, d, chunk);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)N * sizeof(float);
-  err = cudaFuncSetAttribute(l2_select,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  l2_select<<<B, kThreads2, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(part),
-      static_cast<const float*>(rnorm), static_cast<float*>(vals),
-      static_cast<int*>(ids), B, N, d, splits, k);
+  l2_select<<<B, kThreads2, (size_t)N * sizeof(float), s>>>(
+      dots, qn_part, static_cast<const float*>(rnorm),
+      static_cast<float*>(vals), static_cast<int*>(ids), B, N, splits, k);
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,8 @@ The kernel replaces rag_snvbert_tpu/ops/l2_topk_pallas.py::_l2_topk_kernel
 (reached through ``l2_topk_pallas``), the embedding-space search of the
 serving path.  It returns exact float32 distances with the ``l2_ref`` tie
 rule (ascending id), where the TPU kernel quantizes distances to 2048 ULP.
+Pass 1 is a TMA/mbarrier ring feeding wgmma products over a split of the d
+axis; this module plans the split (``split_plan``) and owns the workspace.
 ``l2_topk`` takes the plain version for CPU tensors only; a CUDA tensor
 goes to the kernel, or the wrapper raises on what the kernel does not take.
 """
@@ -12,14 +14,17 @@ goes to the kernel, or the wrapper raises on what the kernel does not take.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build, l2_ref
 
 MAX_K = 128
-_TILE_D = 64        # pass-1 d step (csrc/l2_topk.cu kTileD)
-_TILE_ROWS = 64     # pass-1 query and reference tile rows
+_STAGE_D = 128      # columns of d per pipeline stage (csrc/l2_topk.cu kStageD)
+_TILE_B = 64        # queries per pass-1 block (kTileB)
+_TILE_N = 128       # reference rows per pass-1 block (kTileN)
+_WAVES = 4          # 16 ref tiles x 33 splits are four full waves of 132 SMs
 _MAX_N = 49152      # pass 2 holds one float per reference row in shared memory
 _SIGNATURES = {"l2_topk_bf16": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                + [ctypes.c_void_p]}
@@ -35,13 +40,19 @@ def l2_topk_plain(queries: torch.Tensor, refs: torch.Tensor,
 
 
 def split_plan(b: int, n: int, d: int, sm_count: int) -> tuple[int, int]:
-    """(splits, chunk) of the d axis for pass 1: enough blocks for about
-    eight per SM, each chunk a whole number of d steps."""
-    tiles = -(-n // _TILE_ROWS) * -(-b // _TILE_ROWS)
-    steps = -(-d // _TILE_D)
-    want = max(1, min(steps, -(-8 * sm_count // tiles)))
-    chunk = -(-steps // want) * _TILE_D
+    """(splits, chunk) of the d axis for pass 1: as many splits as fill
+    ``_WAVES`` waves of one block per SM, each chunk a whole number of
+    pipeline stages."""
+    tiles = -(-n // _TILE_N) * -(-b // _TILE_B)
+    steps = -(-d // _STAGE_D)
+    want = max(1, min(steps, _WAVES * sm_count // tiles))
+    chunk = -(-steps // want) * _STAGE_D
     return -(-d // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def l2_topk(queries: torch.Tensor, refs: torch.Tensor, r_norms: torch.Tensor,
@@ -79,9 +90,11 @@ def l2_topk(queries: torch.Tensor, refs: torch.Tensor, r_norms: torch.Tensor,
             raise ValueError(f"l2_topk: {name} must be contiguous and "
                              "16-byte aligned")
     lib = _build.load("l2_topk", _SIGNATURES)
-    sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
+    index = queries.device.index
+    sms = _sm_count(torch.cuda.current_device() if index is None else index)
     splits, chunk = split_plan(b, n, d, sms)
-    part = torch.empty(splits, b, n, dtype=torch.float32,
+    # the partial dots [splits, b, n], then the partial |q|^2 [splits, b]
+    part = torch.empty(splits * b * (n + 1), dtype=torch.float32,
                        device=queries.device)
     vals = torch.empty(b, k, dtype=torch.float32, device=queries.device)
     ids = torch.empty(b, k, dtype=torch.int32, device=queries.device)

@@ -20,6 +20,11 @@ Differences from the TPU kernel (README.md, port section):
   - ``+inf`` rows rank after every finite row in id order, and slots past
     the last row hold ``(+inf, -1)`` (the TPU kernel leaves ``(+inf, 0)``
     once the finite rows run out).
+Pass 1 is a warp-specialized TMA/mbarrier ring feeding int8 wgmma products,
+with the selection as the products' epilogue; this module plans the split
+of the ref rows (``split_plan``), the ring's depth within the block's
+shared memory (``smem_bytes``, ``ring_stages``) and the workspace, and
+mirrors the kernel's K walk over packed refs (``packed_k_walk``).
 ``compute="int4"`` is accepted and computed as int8 (Hopper has no int4
 mma): the result is the same.  ``l2_topk_rf`` takes the plain version for
 CPU tensors only; a CUDA tensor goes to the kernel, or the wrapper raises
@@ -29,6 +34,8 @@ on what the kernel does not take.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -37,14 +44,17 @@ from . import _build
 from .planar import PACKS, planar_unpack
 
 MAX_K = 128
-_BQ = 64              # queries per pass-1 block (csrc/l2_topk_rf.cu kBQ)
-_BN = 64              # ref rows per tile (kBN)
+MAX_WIDTH = 8192      # unpacked bytes: distances stay below 2^29 (the kernel's
+                      # selection leans on it, csrc/l2_topk_rf.cu kThrCap)
+_BQ = 128             # queries per pass-1 block (csrc/l2_topk_rf.cu kBQ)
+_BN = 192             # ref rows per tile (kBN)
 _KD = 128             # unpacked bytes of d per chunk (kKD)
+_MAX_STAGES = 4       # ring stages at most (kMaxStages)
 _SMEM_MAX = 232448    # dynamic shared memory a block may use on an H100
 _PLAIN_CHUNK = 65536  # ref rows per step of the plain version
-_SIGNATURES = {"l2_topk_rf_s8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+_SIGNATURES = {"l2_topk_rf_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                + [ctypes.c_void_p],
-               "l2_topk_rf_smem": [ctypes.c_int] * 2}
+               "l2_topk_rf_smem": [ctypes.c_int] * 3}
 
 
 def _unpacked(refs: torch.Tensor, pack: int) -> torch.Tensor:
@@ -92,22 +102,75 @@ def unpacked_width(d: int, refs_width: int, pack: int) -> int:
     return -(-max(d, 1) // _KD) * _KD if pack == 1 else refs_width * pack
 
 
-def split_plan(b: int, n: int, sm_count: int) -> tuple[int, int]:
-    """(splits, rows per split) of the ref rows for pass 1: about four
-    blocks per SM, each split a whole number of 64-row tiles."""
-    n_tiles = -(-n // _BN)
+def row_classes(refs_width: int, n: int, pack: int, base_aligned: bool
+                ) -> int:
+    """F, the row classes of pack 1 refs: TMA needs rows of a 16-byte
+    stride, which ``[N / F, F * width]`` has for F = 16 / gcd(width, 16);
+    a box of that view holds the rows ``c, c + F, ...`` of one class, and a
+    pass-1 block searches one class.  1 when the rows need no such view, or
+    cannot have it (packed refs, a base off 16 bytes, F not dividing N):
+    those go through the kernel's cp.async loader."""
+    if pack != 1 or not base_aligned:
+        return 1
+    f = 16 // math.gcd(refs_width, 16)
+    return f if n % f == 0 else 1
+
+
+def split_plan(b: int, n: int, sm_count: int, classes: int = 1
+               ) -> tuple[int, int]:
+    """(splits, rows per split) of the ref rows for pass 1.  A split is a
+    range of one class's rows (``classes`` = 1: of all rows), a whole
+    number of 192-row tiles; ``splits`` = ranges * classes, range-major, as
+    many as keep the grid within one wave of one block per SM (long splits:
+    a row's list changes about k (1 + ln(rows / k)) times a split)."""
+    n_tiles = -(-(n // classes) // _BN)
     q_tiles = -(-b // _BQ)
-    splits = max(1, min(n_tiles, -(-4 * sm_count // q_tiles)))
-    rows = -(-n_tiles // splits) * _BN
-    return -(-n // rows), rows
+    ranges = max(1, min(n_tiles, sm_count // (q_tiles * classes)))
+    rows = -(-n_tiles // ranges) * _BN
+    return -(-(n // classes) // rows) * classes, rows
 
 
-def _align(x: torch.Tensor) -> int:
-    """The largest of 16/8/4 dividing the address and the row stride."""
-    for a in (16, 8, 4):
-        if x.data_ptr() % a == 0 and x.shape[1] % a == 0:
-            return a
-    return 1
+def smem_bytes(kp: int, packed: bool, stages: int) -> int:
+    """Shared memory of one pass-1 block: the twin of ``Layout`` in
+    ``csrc/l2_topk_rf.cu`` (``l2_topk_rf_smem``).  The ring's stages (128
+    queries + 192 ref rows x 128 bytes), the packed staging panel, the 128
+    rows' sorted lists (distances and ids, ``kp`` entries each:
+    ``list_stride``), two tiles' norm codes, |q|^2, the mbarriers, and the
+    slack to align to the 1024-byte swizzle period."""
+    stage = (_BQ + _BN) * _KD
+    lists = 2 * _BQ * kp * 4
+    return (stages * stage + (_BN * _KD if packed else 0) + lists
+            + 2 * _BN * 4 + _BQ * 4
+            + (2 * _MAX_STAGES + 5) * 8 + 1024)
+
+
+def list_stride(k: int) -> int:
+    """``kp``: the entries a row's list is laid out with, 16 for k <= 16,
+    else k rounded up to 32."""
+    return 16 if k <= 16 else -(-k // 32) * 32
+
+
+def ring_stages(kp: int, packed: bool) -> int:
+    """The deepest ring that fits the block's shared memory (0: none)."""
+    return max((s for s in range(1, _MAX_STAGES + 1)
+                if smem_bytes(kp, packed, s) <= _SMEM_MAX), default=0)
+
+
+def packed_k_walk(d: int, refs_width: int, pack: int) -> list[tuple[int, int, int]]:
+    """The kernel's K loop as ``(column block, plane, first unpacked
+    column)`` in order: 128-byte column blocks of the stored rows, each
+    with its planes (pack 1: one); plane ``m`` of stored byte ``j`` is
+    unpacked column ``m * refs_width + j``.  Chunks whose columns all lie
+    at or past ``d`` (zero queries) are skipped."""
+    blocks = refs_width // _KD if pack > 1 else -(-max(d, 1) // _KD)
+    walk = [(cb, m, m * refs_width * (pack > 1) + cb * _KD)
+            for cb in range(blocks) for m in range(pack)]
+    return [(cb, m, u0) for cb, m, u0 in walk if u0 < max(d, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check(queries, refs, r_norms, k, pack, compute) -> None:
@@ -145,10 +208,9 @@ def l2_topk_rf(queries: torch.Tensor, refs: torch.Tensor,
                compute: str | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest rows of ``refs`` for each int8 query by exact squared L2
-    (see the module docstring).  On the card the unpacked width, rounded
-    up to 128, must fit the block's shared memory with ``k``: up to 2304
-    bytes at k = 128, 3072 at k <= 32 (``l2_topk_rf_smem``); within that,
-    int32 distances cannot overflow."""
+    (see the module docstring).  On the card the unpacked width may reach
+    ``MAX_WIDTH`` bytes, within which int32 distances cannot overflow;
+    finite norms are the rows' squared norms (below 2^28 there)."""
     _check(queries, refs, r_norms, k, pack, compute)
     if queries.device.type == "cpu":
         return l2_topk_rf_plain(queries, refs, r_norms, k, pack)
@@ -164,26 +226,35 @@ def l2_topk_rf(queries: torch.Tensor, refs: torch.Tensor,
     b, d = queries.shape
     n, rw = refs.shape
     dp = unpacked_width(d, rw, pack)
-    kp = -(-k // 32) * 32
+    if dp > MAX_WIDTH:
+        raise ValueError(f"l2_topk_rf: unpacked width {dp} > {MAX_WIDTH}: "
+                         "int32 distances could overflow")
+    kp = list_stride(k)
+    stages = ring_stages(kp, pack > 1)
     lib = _build.load("l2_topk_rf", _SIGNATURES)
-    smem = lib.l2_topk_rf_smem(dp, kp)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"l2_topk_rf: unpacked width {dp} with k={k} needs "
-                         f"{smem} bytes of shared memory (> {_SMEM_MAX})")
     vals = torch.empty(b, k, dtype=torch.float32, device=queries.device)
     ids = torch.empty(b, k, dtype=torch.int32, device=queries.device)
     if b == 0:
         return vals, ids
-    sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    splits, rows = split_plan(b, max(n, 1), sms)
-    cand = torch.empty(2, splits, b, k, dtype=torch.int32,
-                       device=queries.device)
+    index = queries.device.index
+    sms = _sm_count(torch.cuda.current_device() if index is None else index)
+    classes = row_classes(rw, n, pack, refs.data_ptr() % 16 == 0) if n else 1
+    splits, rows = split_plan(b, max(n, 1), sms, classes)
+    # the splits' lists (distances, then ids), then the queries copied to
+    # rows of 16-byte stride where theirs are not
+    lists = -(-8 * splits * b * k // 256) * 256
+    if classes > 1:      # a copy per row class, shifted by up to 15 bytes
+        padded = classes * b * -(-(d + 15) // 16) * 16
+    elif d % 16 == 0 and queries.data_ptr() % 16 == 0:
+        padded = 0
+    else:
+        padded = b * -(-d // 16) * 16
+    ws = torch.empty(lists + padded, dtype=torch.uint8, device=queries.device)
     with torch.cuda.device(queries.device):
         rc = lib.l2_topk_rf_s8(
             queries.data_ptr(), refs.data_ptr(), r_norms.data_ptr(),
-            cand[0].data_ptr(), cand[1].data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), b, n, d, rw, pack, dp, k, kp, splits, rows,
-            _align(queries), _align(refs),
+            ws.data_ptr(), vals.data_ptr(), ids.data_ptr(), b, n, d, rw, pack,
+            classes, k, kp, splits, rows, stages,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "l2_topk_rf")
     l2_topk_rf.launches += 1

@@ -1,0 +1,298 @@
+"""Time two or more builds of the search kernels in turns on one card.
+
+Each ``--variant LABEL=DIR`` names a copy of this package's directory (for
+example ``rag_snvbert_tpu_torch/`` of an unpacked ``git archive`` of
+another commit, or a copy with edited tile sizes): its ``csrc/l2_topk.cu``
+and ``csrc/l2_topk_rf.cu`` are built with its own ``ops/_build.py`` and run
+through its own wrappers ``ops.l2_topk.l2_topk`` and
+``ops.l2_topk_rf.l2_topk_rf``, whose Python signatures do not change from
+commit to commit (their C interfaces and host-side plans may).  The package
+that holds this file is always the variant ``this``.
+
+For each kernel the script prints every variant's ptxas report, checks the
+variant against the plain version (``l2_topk``: distances within 2e-4 of
+the expansion's scale; ``l2_topk_rf``: ids and distances exactly equal;
+reruns bit-identical), times the variants in turns (A, B, B, A for two)
+with the library yardstick before and after them (``matmul``+``topk``;
+``_int_mm``+``topk``), splits one call of each variant by kernel with
+``torch.profiler``, and times the host side of one wrapper call.  Shapes:
+``l2_topk`` q [64, 395520] x refs [2048, 395520] bf16, k = 1; ``l2_topk_rf``
+the token search q [64, 1030] x refs [2048, 1040] and the genotype index
+q [1024, 2040] x 664,648 rows at pack 8 and pack 1, k = 10.  One CUDA
+device; run from the repository root:
+
+    mkdir -p build/parent && git archive HEAD~1 | tar -x -C build/parent
+    python -m rag_snvbert_tpu_torch.tools.search_ab \\
+        --variant parent=build/parent/rag_snvbert_tpu_torch
+
+``--only l2_topk`` or ``--only l2_topk_rf`` runs one kernel's part;
+``--rows N`` cuts the index to N rows (a quick check); ``--no-check`` goes
+on timing a variant that disagrees with the plain version (an experiment
+that leaves a part of a kernel out to see what it costs).  The last line
+of the output is a JSON summary.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from ..ops import l2_ref
+from ..ops.l2_topk import l2_topk_plain
+from ..ops.l2_topk_rf import l2_topk_rf_plain
+from ..ops.planar import pack_planar, planar_sq_norms
+from .attention_ab import kernel_split, time_ms
+
+L2_SHAPE = (64, 2048, 1030 * 384)      # B, N, d of the V18 serving search
+L2_PAD_ROWS = 40
+RF_TOKEN = (64, 2048, 1030)
+RF_INDEX = (1024, 331 * 2008, 2040)
+HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
+L2_REL_TOL = 2e-4                      # as chip_smoke.py
+MUST_AGREE = True                      # --no-check clears it
+
+
+def disagrees(what: str) -> None:
+    if MUST_AGREE:
+        sys.exit(f"{what} disagrees with the plain version")
+    print(f"WARNING: {what} disagrees with the plain version")
+
+
+def load_variant(label: str, pkg_dir: Path):
+    """The package at ``pkg_dir`` imported under a name of its own, so that
+    its relative imports reach its own modules (and its own ``csrc/``)."""
+    if label == "this":
+        name = __package__.rsplit(".", 1)[0]
+    else:
+        name = f"_search_ab_{label}"
+        spec = importlib.util.spec_from_file_location(
+            name, pkg_dir / "__init__.py",
+            submodule_search_locations=[str(pkg_dir)])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return {part: importlib.import_module(f"{name}.ops.{part}")
+            for part in ("_build", "l2_topk", "l2_topk_rf")}
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds to enqueue one call (the queue is drained first
+    and the calls are not waited for)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
+def in_turns(labels, make_fn, yardstick, iters: int) -> tuple[dict, list]:
+    """Times of ``make_fn(label)`` for the labels forwards and backwards,
+    the yardstick before and after."""
+    lib = [time_ms(yardstick, iters)]
+    ms: dict[str, list] = {lab: [] for lab in labels}
+    for lab in labels + labels[::-1]:
+        ms[lab].append(time_ms(make_fn(lab), iters))
+    lib.append(time_ms(yardstick, iters))
+    return ms, lib
+
+
+def report(what, labels, ms, lib, lib_name, bound_ms, splits, hosts) -> dict:
+    out = {"bound_ms": bound_ms, "library_ms": lib, "library": lib_name,
+           "variants": {}}
+    for lab in labels:
+        m = statistics.mean(ms[lab])
+        out["variants"][lab] = {
+            "ms": ms[lab], "mean_ms": m, "share_of_bound": bound_ms / m,
+            "vs_library": m / statistics.mean(lib),
+            "by_kernel_ms": splits[lab], "host_us": hosts[lab]}
+        print(f"{what} {lab}: ms {[round(x, 4) for x in ms[lab]]} mean "
+              f"{m:.4f}, {bound_ms / m:.1%} of the {bound_ms:.4f} ms bound, "
+              f"{m / statistics.mean(lib):.3f}x {lib_name}; host "
+              f"{hosts[lab]:.1f} us a call; by kernel "
+              + ", ".join(f"{n} {t:.4f}" for n, t in splits[lab].items()))
+    print(f"{what} {lib_name}: ms {[round(x, 4) for x in lib]}")
+    return out
+
+
+def run_l2(mods, labels, iters, gen) -> dict:
+    b, n, d = L2_SHAPE
+    refs = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    pick = torch.randperm(n - L2_PAD_ROWS, generator=gen, device="cuda")[:b]
+    noise = torch.randn(b, d, generator=gen, device="cuda")
+    q = (refs[pick].float() + 0.5 * noise).to(torch.bfloat16)
+    del noise
+    norms = l2_ref.squared_norms(refs)
+    norms[-L2_PAD_ROWS:] = float("inf")
+    qn = l2_ref.squared_norms(q)
+    full = l2_ref.l2_distances(q, refs, r_norms=norms)
+    for k in (1, 8):
+        rv, ri = l2_topk_plain(q, refs, norms, k)
+        scale = qn[:, None] + norms[ri.long()]
+        for lab in labels:
+            fn = mods[lab]["l2_topk"].l2_topk
+            vals, ids = fn(q, refs, norms, k)
+            again = fn(q, refs, norms, k)
+            rel = ((vals - rv).abs() / scale).max().item()
+            tie = ((torch.gather(full, 1, ids.long()) - rv).abs()
+                   / scale).max().item()
+            same = torch.equal(vals, again[0]) and torch.equal(ids, again[1])
+            print(f"l2_topk {lab} k={k}: max |err|/(|q|^2+|r|^2) {rel:.3e}, "
+                  f"picked rows {tie:.3e} (tol {L2_REL_TOL:.0e}), ids equal "
+                  f"{(ids == ri).float().mean().item():.4f}, rerun "
+                  f"bit-identical {same}")
+            if not (rel <= L2_REL_TOL and tie <= L2_REL_TOL and same):
+                disagrees(f"l2_topk {lab}")
+    del full
+
+    def library():
+        return torch.topk(qn[:, None] - 2.0 * torch.matmul(q, refs.T).float()
+                          + norms[None], 1, dim=1, largest=False)
+
+    def make(lab):
+        fn = mods[lab]["l2_topk"].l2_topk
+        return lambda: fn(q, refs, norms, 1)
+
+    ms, lib = in_turns(labels, make, library, iters)
+    bound_ms = max((b * d * 2 + n * d * 2 + n * 4 + b * 8) / HBM_BYTES_PER_S,
+                   2 * b * n * d / BF16_FLOP_PER_S) * 1e3
+    splits = {lab: kernel_split(make(lab)) for lab in labels}
+    hosts = {lab: host_us(make(lab), 50) for lab in labels}
+    return report(f"l2_topk q [{b}, {d}] refs [{n}, {d}] k=1", labels, ms,
+                  lib, "matmul+topk", bound_ms, splits, hosts)
+
+
+def run_rf_case(what, mods, labels, q, refs, norms, k, pack, d, lib_refs,
+                iters) -> dict:
+    rv, ri = l2_topk_rf_plain(q, refs, norms, k, pack=pack)
+    for lab in labels:
+        fn = mods[lab]["l2_topk_rf"].l2_topk_rf
+        vals, ids = fn(q, refs, norms, k, pack=pack)
+        again = fn(q, refs, norms, k, pack=pack)
+        same = torch.equal(ids, ri) and torch.equal(vals, rv)
+        rerun = torch.equal(vals, again[0]) and torch.equal(ids, again[1])
+        print(f"{what} {lab}: ids and distances equal to plain {same}, "
+              f"rerun bit-identical {rerun}")
+        if not (same and rerun):
+            disagrees(f"{what} {lab}")
+    del rv, ri
+    b, n = q.shape[0], refs.shape[0]
+    qn = (q.to(torch.int32) ** 2).sum(1).float()
+
+    def library():
+        dots = torch._int_mm(q, lib_refs.t()).float()
+        return torch.topk(qn[:, None] + norms[None] - 2.0 * dots, k, dim=1,
+                          largest=False)
+
+    def make(lab):
+        fn = mods[lab]["l2_topk_rf"].l2_topk_rf
+        return lambda: fn(q, refs, norms, k, pack=pack)
+
+    ms, lib = in_turns(labels, make, library, iters)
+    bound_ms = max((q.numel() + refs.numel() + 4 * n + 8 * b * k)
+                   / HBM_BYTES_PER_S, 2 * b * n * d / INT8_OP_PER_S) * 1e3
+    splits = {lab: kernel_split(make(lab)) for lab in labels}
+    hosts = {lab: host_us(make(lab), 50 if n > 100000 else 500)
+             for lab in labels}
+    out = report(what, labels, ms, lib, "_int_mm+topk", bound_ms, splits,
+                 hosts)
+    out["int_mm_ms"] = time_ms(lambda: torch._int_mm(q, lib_refs.t()), iters)
+    print(f"{what} torch._int_mm alone: {out['int_mm_ms']:.4f} ms")
+    return out
+
+
+def run_rf(mods, labels, iters, gen, rows) -> dict:
+    out = {}
+    b, n, d = RF_TOKEN
+    width = -(-d // 16) * 16
+    refs = torch.zeros(n, width, dtype=torch.int8, device="cuda")
+    refs[: n - L2_PAD_ROWS, :d] = torch.randint(
+        0, 7, (n - L2_PAD_ROWS, d), generator=gen, device="cuda",
+        dtype=torch.int8)
+    refs[1500:1510] = refs[:10]
+    norms = (refs.to(torch.int32) ** 2).sum(1).float()
+    norms[-L2_PAD_ROWS:] = float("inf")
+    q = refs[torch.randperm(n - L2_PAD_ROWS, generator=gen,
+                            device="cuda")[:b]].clone()
+    q[:, 0:d:5] = 4
+    # the wrappers take refs as wide as the queries (pack 1): the context's
+    # padding columns are zero, so the queries are padded like it
+    out["token"] = run_rf_case("l2_topk_rf token k=1", mods, labels, q, refs,
+                               norms, 1, 1, d, refs, max(iters, 100))
+    b, n, d = RF_INDEX
+    n = rows or n
+    bits = torch.randint(0, 2, (n, d), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    qb = torch.randint(0, 2, (b, d), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    packed = pack_planar(bits, 8)
+    norms = planar_sq_norms(packed, 8)
+    out["index_pack8"] = run_rf_case(
+        f"l2_topk_rf index [{b}, {d}] x {n} pack=8 k=10", mods, labels, qb,
+        packed, norms, 10, 8, d, bits, iters)
+    del packed
+    out["index_pack1"] = run_rf_case(
+        f"l2_topk_rf index [{b}, {d}] x {n} pack=1 k=10", mods, labels, qb,
+        bits, norms, 10, 1, d, bits, iters)
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="LABEL=DIR")
+    ap.add_argument("--only", choices=("l2_topk", "l2_topk_rf"))
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--rows", type=int, default=0,
+                    help="rows of the genotype index (default: all 664,648)")
+    ap.add_argument("--no-check", action="store_true")
+    args = ap.parse_args(argv)
+    global MUST_AGREE
+    MUST_AGREE = not args.no_check
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: this script times kernels on the card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    print(card)
+    variants = {lab: Path(d) for lab, d in
+                (v.split("=", 1) for v in args.variant)}
+    variants["this"] = Path(__file__).resolve().parent.parent
+    mods = {lab: load_variant(lab, d) for lab, d in variants.items()}
+    labels = list(variants)
+    names = [args.only] if args.only else ["l2_topk", "l2_topk_rf"]
+    for lab in labels:
+        t = time.perf_counter()
+        mods[lab]["_build"].build(names)
+        print(f"--- {lab}: built {names} in {time.perf_counter() - t:.1f} s")
+        for name in names:
+            print(f"--- {lab} {name}.cu")
+            print(mods[lab]["_build"].ptxas_log(name).strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    summary: dict = {"card": card}
+    if "l2_topk" in names:
+        summary["l2_topk"] = run_l2(mods, labels, args.iters, gen)
+        torch.cuda.empty_cache()
+    if "l2_topk_rf" in names:
+        summary["l2_topk_rf"] = run_rf(mods, labels, args.iters, gen,
+                                       args.rows)
+    print(card)
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()

@@ -206,6 +206,61 @@ def test_l2_kernel_matches_plain(cuda, b, n, d, k):
     assert ((picked - rv).abs() / scale).max().item() <= 2e-4
 
 
+# Pass 1's tiles: 64 queries, 128 ref rows, pipeline stages of 128 columns
+# of d.  B and N one below, at and one above a tile; d of one 16-byte
+# vector, off the 64-column panel (72), several stages and a ragged last
+# one (520), and short of one stage (200); +inf rows on both sides of a
+# tile's edge.
+L2_EDGES = [
+    (63, 127, 8, 1), (64, 128, 72, 8), (65, 129, 520, 128),
+    (1, 255, 200, 8), (64, 256, 1096, 128), (129, 257, 128, 1),
+    (48, 2048, 4104, 8), (127, 385, 200, 128),
+]
+
+
+@pytest.mark.parametrize("b,n,d,k", L2_EDGES)
+def test_l2_kernel_at_its_tiles_edges(cuda, b, n, d, k):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    refs = _bf16((n, d), gen, cuda)
+    q = _bf16((b, d), gen, cuda)
+    norms = l2_ref.squared_norms(refs)
+    norms[n - 1] = float("inf")
+    if n > 129:
+        norms[127:129] = float("inf")
+    before = ops.launch_counts()["l2_topk"]
+    vals, ids = l2_topk(q, refs, norms, k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["l2_topk"] == before + 1
+    rv, ri = l2_topk_plain(q, refs, norms, k)
+    scale = l2_ref.squared_norms(q)[:, None] + norms[ri.long()].clamp_max(
+        1e30)
+    # as test_l2_kernel_matches_plain: relative to the expansion's scale
+    finite = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(vals), finite)
+    err = ((vals - rv).abs() / scale)[finite]
+    assert err.numel() == 0 or err.max().item() <= 2e-4
+    full = l2_ref.l2_distances(q, refs, r_norms=norms)
+    picked = torch.gather(full, 1, ids.long())
+    perr = ((picked - rv).abs() / scale)[finite]
+    assert perr.numel() == 0 or perr.max().item() <= 2e-4
+    if k < n - 3:
+        assert bool(torch.isfinite(vals).all())     # no +inf row returned
+    again = l2_topk(q, refs, norms, k)
+    assert torch.equal(again[0], vals) and torch.equal(again[1], ids)
+
+
+def test_l2_kernel_orders_exact_ties_by_id_across_tiles(cuda):
+    """Rows 5, 130 and 300 (three ref tiles) duplicate each other and the
+    query: three exact zeros, ids ascending."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    refs = _bf16((400, 264), gen, cuda)
+    refs[130] = refs[5]
+    refs[300] = refs[5]
+    norms = l2_ref.squared_norms(refs)
+    _, ids = l2_topk(refs[5:6].clone(), refs, norms, 3)
+    assert ids[0].tolist() == [5, 130, 300]
+
+
 def test_l2_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     r = torch.zeros(16, 12, device=cuda, dtype=torch.bfloat16)
     n = torch.zeros(16, device=cuda)
@@ -351,6 +406,119 @@ def test_l2_topk_rf_kernel_matches_plain_exactly(cuda, b, n, d, pack, k):
     assert torch.equal(again[0], vals) and torch.equal(again[1], ids)
 
 
+# Pass 1's tiles: 128 queries (64 a consumer warpgroup), 192 ref rows,
+# 128-byte chunks of the unpacked width.  B and N one below, at and one
+# above a tile (or half a query tile) at every pack; widths that TMA cannot
+# take (1030, 31: the cp.async and byte loaders) and ones it can (1040,
+# 128); k = 128 (a one-stage ring) and small k.
+RF_EDGES = [(b, n, d, pack, k)
+            for pack, ds in ((1, (1030, 31, 1040, 128)), (2, (200, 512)),
+                             (4, (1030, 512)), (8, (2040, 1024)))
+            for (b, n), d, k in zip(
+                ((63, 191), (64, 192), (65, 193), (127, 383), (128, 384),
+                 (129, 385)),
+                ds * 3, (10, 1, 128, 10, 32, 64))]
+# rings of two stages and of one (k = 96, 128) behind each loader
+RF_EDGES += [(33, 600, 1030, 1, 96), (33, 600, 1040, 1, 96),
+             (33, 600, 520, 1, 128), (33, 600, 300, 2, 96),
+             (130, 600, 2040, 8, 17)]
+
+
+@pytest.mark.parametrize("b,n,d,pack,k", RF_EDGES)
+def test_l2_topk_rf_kernel_at_its_tiles_edges(cuda, b, n, d, pack, k):
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import (l2_topk_rf,
+                                                      l2_topk_rf_plain)
+
+    q, refs, norms = _int8_case(b, n, d, pack, 11, cuda)
+    norms[191 % n] = float("inf")                # a tile's last row
+    vals, ids = l2_topk_rf(q, refs, norms, k, pack=pack)
+    torch.cuda.synchronize()
+    rv, ri = l2_topk_rf_plain(q, refs, norms, k, pack=pack)
+    assert torch.equal(ids, ri), (ids.cpu(), ri.cpu())
+    assert torch.equal(vals, rv)
+    again = l2_topk_rf(q, refs, norms, k, pack=pack)
+    assert torch.equal(again[0], vals) and torch.equal(again[1], ids)
+
+
+@pytest.mark.parametrize("pack", [1, 2, 4, 8])
+def test_l2_topk_rf_takes_an_unaligned_base(cuda, pack):
+    """Queries and refs that start 3 bytes into a buffer: no 16-byte base
+    for TMA, no 4-byte base for cp.async."""
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import (l2_topk_rf,
+                                                      l2_topk_rf_plain)
+
+    q, refs, norms = _int8_case(70, 600, 300 if pack > 1 else 272, pack, 3,
+                                cuda)
+
+    def shifted(x):
+        buf = torch.zeros(x.numel() + 3, dtype=torch.int8, device=cuda)
+        out = buf[3:].view(x.shape)
+        out.copy_(x)
+        assert out.data_ptr() % 4 == 3 and out.is_contiguous()
+        return out
+
+    vals, ids = l2_topk_rf(shifted(q), shifted(refs), norms, 10, pack=pack)
+    rv, ri = l2_topk_rf_plain(q, refs, norms, 10, pack=pack)
+    assert torch.equal(ids, ri) and torch.equal(vals, rv)
+
+
+@pytest.mark.parametrize("pack", [1, 8])
+@pytest.mark.parametrize("first", [185, 570, 49140])
+def test_l2_topk_rf_all_ties_across_tile_and_split_edges(cuda, pack, first):
+    """Every row at the same distance, the rows below ``first`` at +inf:
+    the 20 nearest are first .. first + 19, across a tile's edge (192),
+    across a split's (70,001 rows on 132 SMs: splits of 576 rows) and
+    across the last split's start."""
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import l2_topk_rf, split_plan
+    from rag_snvbert_tpu_torch.ops.planar import pack_planar
+
+    n = 70001
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, rows = split_plan(5, n, sms)
+    assert splits > 1 and rows > 192
+    if first == 49140:
+        first = (splits - 1) * rows - 10
+    r = torch.ones(n, 64, dtype=torch.int8, device=cuda)
+    refs = r if pack == 1 else pack_planar(r, pack)
+    norms = torch.full((n,), 64.0, device=cuda)
+    norms[:first] = float("inf")
+    q = torch.zeros(5, 64, dtype=torch.int8, device=cuda)
+    vals, ids = l2_topk_rf(q, refs, norms, 20, pack=pack)
+    assert ids[0].tolist() == list(range(first, first + 20))
+    assert ids[4].tolist() == list(range(first, first + 20))
+    assert bool((vals == 64.0).all())
+
+
+def test_l2_topk_rf_packed_reruns_stay_exact(cuda):
+    """Many tiles a split, packed refs, eight fresh runs: the loader takes
+    each packed column block into registers and starts the next block's
+    load into the same buffer; a load that overtook those reads showed as
+    a few wrong rows in the first runs only."""
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import (l2_topk_rf,
+                                                      l2_topk_rf_plain)
+
+    q, refs, norms = _int8_case(1024, 20000, 2040, 8, 13, cuda)
+    rv, ri = l2_topk_rf_plain(q, refs, norms, 1, pack=8)
+    for _ in range(8):
+        fresh = refs.clone()
+        vals, ids = l2_topk_rf(q, fresh, norms, 1, pack=8)
+        assert torch.equal(ids, ri) and torch.equal(vals, rv)
+
+
+def test_l2_topk_rf_smem_twin_matches_the_kernel(cuda):
+    import importlib
+
+    from rag_snvbert_tpu_torch.ops import _build
+
+    mod = importlib.import_module("rag_snvbert_tpu_torch.ops.l2_topk_rf")
+    lib = _build.load("l2_topk_rf", mod._SIGNATURES)
+    for kp in (16, 32, 64, 96, 128):
+        for packed in (False, True):
+            for stages in (1, 2, 3, 4):
+                assert lib.l2_topk_rf_smem(kp, int(packed), stages) == \
+                    mod.smem_bytes(kp, packed, stages)
+
+
 def test_l2_topk_rf_all_ties_and_inf_rows(cuda):
     from rag_snvbert_tpu_torch.ops.l2_topk_rf import l2_topk_rf
 
@@ -384,9 +552,12 @@ def test_l2_topk_rf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         l2_topk_rf(r, r, n, 129)
     with pytest.raises(ValueError, match="multiple of 128"):
         l2_topk_rf(r[:, :40], r[:, :100], n, 1, pack=4)
-    with pytest.raises(ValueError, match="shared memory"):
-        w = torch.zeros(4, 4000, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="overflow"):
+        w = torch.zeros(4, 20000, dtype=torch.int8, device=cuda)
         l2_topk_rf(w, w, n[:4], 128)
+    # wider than any block's shared memory could hold whole: d is streamed
+    w = torch.zeros(4, 4000, dtype=torch.int8, device=cuda)
+    assert l2_topk_rf(w, w, n[:4], 128)[1][0, :4].tolist() == [0, 1, 2, 3]
     with pytest.raises(ValueError, match="contiguous"):
         l2_topk_rf(r.t()[:16], r.t()[:16].contiguous(), n, 1)
     w = r[:, :64].contiguous()
