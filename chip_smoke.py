@@ -9,9 +9,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``rag_snvbert_tpu_torch/csrc`` (one nvcc
 per source, started together) and holds each kernel against its plain
-PyTorch version at the main paths' shapes.  Then it drives four paths with
-seeded random weights, each with the launch counts set to 0 just before it
-and read just after:
+PyTorch version at the main paths' shapes.  Then it drives five paths with
+seeded random weights or data, each with the launch counts set to 0 just
+before it and read just after:
   - V18 serving and training at the full ``tpu_default`` width (384d, 12
     layers, 3 heads of 128, L = 1030, a 2048-row window context): two
     imputation requests through ``ImputationService`` (batch 32), and one
@@ -21,11 +21,16 @@ and read just after:
     width (192d, 10 layers, 6 heads, L = 1030, float32, the same context
     size): two requests (batch 32) and one epoch of ``Trainer.fit``
     (batch 16, no accumulation);
-and checks the answers and the launch counts of each path.  It prints one
-JSON line of per-kernel numbers, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
-that line; so does a machine without CUDA or a directory without the
-package.  Imports nothing of JAX or of the JAX package.
+  - the offline index at the genotype-index shape (1024 queries of 2040
+    columns against 664,648 rows, k = 10): packed (pack 8), int8, bf16 and
+    float32 ``FlatL2Index`` searches and masked searches, save/load round
+    trips, and a ``HammingIndex`` search;
+and checks the answers and the launch counts of each path.  V18 serving
+also writes window 0's index and serves that window from it.  It prints
+one JSON line of per-kernel numbers, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+before that line; so does a machine without CUDA or a directory without
+the package.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
+TF32_FLOP_PER_S = 495e12
 
 ATTN_SHAPE = (64, 3, 1030, 128)        # [2B, H, L, hd] at batch 32
 BWD_SHAPE = (48, 3, 1030, 128)         # [2B, H, L, hd] at training batch 24
@@ -101,6 +107,17 @@ TOKEN_PROB_TOL = 1e-5
 TOKEN_LOSS_TOL = 1e-6
 TOKEN_GRAD_TOL = 1e-4
 TOKEN_TRAIN_DIR = "runs/chip_smoke_token_train"
+# l2_topk_float and the offline index: the genotype-index point (as RF_INDEX)
+# and a ragged edge (B, d, N off every tile; the largest k).
+FLOAT_INDEX = (1024, 331 * 2008, 2040)
+FLOAT_EDGE = (3, 50001, 37, 128)
+# Gaussian float32 / bf16 search vs its plain version: both sum d products
+# in float32 in other orders and round the expansion |q|^2 - 2 q.r + |r|^2:
+# values to 1e-5 of |q|^2 + |r|^2 (observed <= 4e-7), and where ids differ
+# the float64 distances of both rows lie that close.  Binary genotypes make
+# every distance an exact float32 integer: equal ids and values.
+FLOAT_REL_TOL = 1e-5
+INDEX_PREFIX = 131072      # rows of the indexes saved and loaded back
 
 
 def fail(msg: str) -> None:
@@ -470,6 +487,260 @@ def phase_l2_rf(gen) -> dict:
             "by_shape": cases}
 
 
+def _float_pair_check(name, q, refs, norms, got, want, exact) -> float:
+    """l2_topk_float's answer against the plain version's: equal where the
+    distances are exact integers, else tie-aware within FLOAT_REL_TOL of
+    |q|^2 + |r|^2.  Returns max |err|."""
+    (vals, ids), (rv, ri) = got, want
+    if exact:
+        same = torch.equal(ids, ri) and torch.equal(vals, rv)
+        print(f"l2_topk_float {name}: ids and distances equal to plain "
+              f"{same}")
+        check(same, f"l2_topk_float disagrees with its plain version "
+              f"({name})")
+        return 0.0
+    inf = torch.isinf(rv)
+    check(torch.equal(torch.isinf(vals), inf)
+          and torch.equal(ids[inf], ri[inf]),
+          f"l2_topk_float +inf slots differ ({name})")
+    qn = (q.to(refs.dtype).double() ** 2).sum(1)
+    scale = qn[:, None] + norms.double()[ri.clamp_min(0).long()]
+    fin = ~inf
+    err = (vals.double() - rv.double()).abs()
+    rel = (err / scale)[fin].max().item() if fin.any() else 0.0
+    diff = (ids != ri) & fin
+    tie = 0.0
+    if diff.any():
+        rows = diff.nonzero()[:, 0]
+        qd = q.to(refs.dtype).double()[rows]
+        d_k = ((qd - refs[ids[diff].long()].double()) ** 2).sum(-1)
+        d_p = ((qd - refs[ri[diff].long()].double()) ** 2).sum(-1)
+        tie = ((d_k - d_p).abs() / scale[diff]).max().item()
+    print(f"l2_topk_float {name}: ids equal "
+          f"{(ids == ri).float().mean().item():.6f}, max |err|/(|q|^2+|r|^2) "
+          f"{rel:.3e}, ties {tie:.3e} (tol {FLOAT_REL_TOL:.0e})")
+    check(rel <= FLOAT_REL_TOL and tie <= FLOAT_REL_TOL,
+          f"l2_topk_float disagrees with its plain version ({name})")
+    return err[fin].max().item() if fin.any() else 0.0
+
+
+def _f64_error(q, refs, norms, vals, ids) -> float:
+    """Max |returned distance - the same function in float64| of the
+    returned pairs, relative to |q|^2 + |r|^2: |q|^2 - 2 q.r + |r|^2 with
+    |q|^2 and q.r in float64 and the given |r|^2 (an input: its own float32
+    rounding is not the search's error)."""
+    qd = q.to(refs.dtype).double()
+    rows = refs[ids.long()].double()                    # [B, k, d]
+    qn = (qd ** 2).sum(1)[:, None]
+    rn = norms.double()[ids.long()]
+    d64 = qn - 2.0 * (qd[:, None, :] * rows).sum(-1) + rn
+    return ((vals.double() - d64).abs() / (qn + rn)).max().item()
+
+
+def _float_case(name, q, refs, norms, k, exact, iters) -> dict:
+    """l2_topk_float at one shape: against the plain version, the float64
+    error of both, reruns, and times beside the plain version and the
+    library yardstick (one matmul in the refs' dtype, TF32 off, + topk)."""
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import (l2_topk_float,
+                                                         l2_topk_float_plain)
+
+    got = l2_topk_float(q, refs, norms, k)
+    torch.cuda.synchronize()
+    want = l2_topk_float_plain(q, refs, norms, k)
+    err = _float_pair_check(name, q, refs, norms, got, want, exact)
+    again = l2_topk_float(q, refs, norms, k)
+    check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+          f"l2_topk_float runs are not bit-identical ({name})")
+    out = {"shape": name, "max_abs_err": err}
+    if not exact:
+        e_k = _f64_error(q, refs, norms, *got)
+        e_p = _f64_error(q, refs, norms, *want)
+        print(f"l2_topk_float {name} vs float64 (relative to |q|^2+|r|^2): "
+              f"kernel {e_k:.3e}, plain float32 matmul {e_p:.3e}")
+        if refs.dtype == torch.float32:    # what Precision.HIGHEST asks
+            check(e_k <= e_p, f"l2_topk_float is further from float64 than "
+                  f"the plain float32 product ({name})")
+        out.update(f64_err=e_k, plain_f64_err=e_p)
+    del again, want
+    if not iters:
+        return out
+    b, d = q.shape
+    n = refs.shape[0]
+    qc = q.to(refs.dtype)
+    qn = (qc.float() ** 2).sum(1)
+
+    def library():
+        dots = torch.matmul(qc, refs.T).float()
+        return torch.topk(qn[:, None] - 2.0 * dots + norms[None], k, dim=1,
+                          largest=False)
+
+    ms = time_ms(lambda: l2_topk_float(q, refs, norms, k), iters)
+    plain_ms = time_ms(lambda: l2_topk_float_plain(q, refs, norms, k), 1, 1)
+    lib_ms = time_ms(library, iters)
+    size = refs.element_size()
+    ops_ = 2 * b * n * d
+    if refs.dtype == torch.float32:     # three TF32 products a pair
+        b_ms, by = bound(size * (b * d + n * d) + 4 * n + 8 * b * k,
+                         3 * ops_, TF32_FLOP_PER_S)
+    else:
+        b_ms, by = bound(size * (b * d + n * d) + 4 * n + 8 * b * k, ops_)
+    print(f"l2_topk_float {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms:.4f} (matmul in {str(refs.dtype)[6:]} + topk) "
+          f"bound_ms {b_ms:.4f} ({by}); " + rates(ops_, ms, b_ms, lib_ms))
+    print(f"l2_topk_float {name} device ms by kernel: " + ", ".join(
+        f"{kn} {t:.4f}" for kn, t in kernel_ms(
+            lambda: l2_topk_float(q, refs, norms, k), 3).items()))
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               library_ms=lib_ms)
+    return out
+
+
+def phase_l2_float(gen) -> dict:
+    """l2_topk_float at the genotype-index shape: binary genotypes stored
+    as bf16 and as float32 (exact), Gaussian float32 (a non-integer distance
+    scale: the float64 error), and the ragged edge in both dtypes."""
+    b, n, d = FLOAT_INDEX
+    bits = torch.randint(0, 2, (n, d), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    qb = torch.randint(0, 2, (b, d), generator=gen, device="cuda").float()
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        refs = bits.to(dtype)
+        norms = (bits.float() ** 2).sum(1)
+        cases.append(_float_case(f"index {str(dtype)[6:]} genotypes", qb,
+                                 refs, norms, 10, True, 5))
+        del refs
+        torch.cuda.empty_cache()
+    del bits
+    refs = torch.randn(n, d, generator=gen, device="cuda")
+    q = torch.randn(b, d, generator=gen, device="cuda")
+    norms = (refs ** 2).sum(1)
+    cases.append(_float_case("index float32 gaussian", q, refs, norms, 10,
+                             False, 5))
+    del refs, norms
+    torch.cuda.empty_cache()
+    eb, en, ed, ek = FLOAT_EDGE
+    for dtype in (torch.float32, torch.bfloat16):
+        refs = torch.randn(en, ed, generator=gen, device="cuda").to(dtype)
+        norms = (refs.float() ** 2).sum(1)
+        norms[[7, en - 1]] = float("inf")
+        q = torch.randn(eb, ed, generator=gen, device="cuda")
+        cases.append(_float_case(
+            f"edge B={eb} N={en} d={ed} k={ek} {str(dtype)[6:]}", q, refs,
+            norms, ek, False, 0))
+    main = cases[0]
+    return {"name": "l2_topk_float", "route": "cuda",
+            "source": "rag_snvbert_tpu_torch/csrc/l2_topk_float.cu",
+            "replaces": "rag_snvbert_tpu/ops/l2_topk_pallas.py:203",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "by_shape": cases}
+
+
+def _index_search(name, idx, q, mask, want_kernel):
+    """search and masked_search through the index (its size rule picks the
+    kernel) against use_pallas=False (no launch), exactly (genotypes)."""
+    from rag_snvbert_tpu_torch import ops
+
+    for what, fn in (("search", lambda **kw: idx.search(q, 10, **kw)),
+                     ("masked_search",
+                      lambda **kw: idx.masked_search(q, mask, 10, **kw))):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        after = ops.launch_counts()
+        launched = {k: v - before[k] for k, v in after.items()
+                    if v != before[k]}
+        plain = fn(use_pallas=False)
+        check(ops.launch_counts() == after,
+              "use_pallas=False launched a kernel")
+        same = torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        print(f"index {name} {what}: {sec * 1e3:.2f} ms (host clock, one "
+              f"call), launches {launched}, equal to use_pallas=False {same}")
+        check(launched == {want_kernel: 1},
+              f"index {name} {what} did not launch {want_kernel}")
+        check(same, f"index {name} {what} disagrees with the plain path")
+        del got, plain
+
+
+def phase_index(gen) -> dict[str, int]:
+    """The offline index at the genotype-index shape through FlatL2Index,
+    one storage at a time (each freed after use): packed (pack 8), int8,
+    bf16 and float32, then a HammingIndex."""
+    import tempfile
+
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.index import FlatL2Index, HammingIndex
+
+    b, n, d = FLOAT_INDEX
+    bits = torch.randint(0, 2, (n, d), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    q = torch.randint(0, 2, (b, d), generator=gen, device="cuda").float()
+    mask = torch.rand(d, generator=gen, device="cuda") > 0.3
+    ops.reset_launches()
+    storages = (("packed", dict(pack=8), "l2_topk_rf"),
+                ("int8", dict(dtype=torch.int8), "l2_topk_rf"),
+                ("bf16", dict(dtype=torch.bfloat16), "l2_topk_float"),
+                ("f32", dict(dtype=torch.float32), "l2_topk_float"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw, kernel in storages:
+            src = bits if "pack" in kw else bits.float()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            idx = FlatL2Index.build(src, align=True, **kw)
+            torch.cuda.synchronize()
+            gb = idx.vectors.numel() * idx.vectors.element_size() / 1e9
+            print(f"index {name}: build {time.perf_counter() - t:.2f} s, "
+                  f"vectors {list(idx.vectors.shape)} {idx.vectors.dtype}, "
+                  f"{gb:.2f} GB")
+            _index_search(name, idx, q, mask, kernel)
+            del idx
+            # save/load round trip of the first INDEX_PREFIX rows
+            part = FlatL2Index.build(src[:INDEX_PREFIX], align=True, **kw)
+            path = os.path.join(tmp, name)
+            part.save(path)
+            back = FlatL2Index.load(path + ".npz")
+            same = all(torch.equal(getattr(part, f), getattr(back, f))
+                       for f in ("vectors", "norms")) and \
+                (part.n_real, part.d_real, part.pack) == \
+                (back.n_real, back.d_real, back.pack)
+            a, c = part.search(q, 10), back.search(q, 10)
+            same = same and torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+            print(f"index {name}: save/load of {INDEX_PREFIX} rows "
+                  f"round-trips exactly {same}")
+            check(same, f"index {name} save/load round trip")
+            del part, back, src, a, c
+            torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    # Hamming over the first rows: equal to its direct path and, on 0/1
+    # data, to the packed L2 search (squared L2 is Hamming on bits)
+    rows = bits[:65536].cpu().numpy()
+    ham = HammingIndex.build(rows)
+    qh = q[:64].to(torch.int8)
+    streamed = ham.search(qh, 10, streaming=True)
+    direct = ham.search(qh, 10, streaming=False)
+    l2 = FlatL2Index.build(bits[:65536], pack=8).search(qh, 10,
+                                                         use_pallas=False)
+    same = torch.equal(streamed[0], direct[0]) and \
+        torch.equal(streamed[1], direct[1]) and \
+        torch.equal(direct[1], l2[1]) and \
+        torch.equal(direct[0].float(), l2[0])
+    print(f"hamming [64] x [65536, {d}] bits: streaming equal to direct and "
+          f"to packed L2 {same}")
+    check(same, "HammingIndex disagrees with its direct path or with L2")
+    del bits
+    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
+            "l2_topk_rf": 2 * 4, "l2_topk_float": 2 * 4}
+    print(f"index launches {counts} (expected {want}: search, masked "
+          f"search and the round trip's two searches, two storages each)")
+    check(counts == want, "the index path did not go through its kernels")
+    return counts
+
+
 def _drop(vcf, keep):
     return dataclasses.replace(vcf, gt=vcf.gt[keep], pos=vcf.pos[keep],
                                chrom=vcf.chrom[keep], ref=vcf.ref[keep],
@@ -524,7 +795,7 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * batches * len(targets),
             "attention_bwd": 0, "l2_topk": batches * len(targets),
-            "l2_topk_rf": 0}
+            "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"launches {counts} (expected {want}: {n_win} windows x "
           f"{batches // n_win} batches x {len(targets)} requests); peak "
           f"device memory {peak_gb:.2f} GB")
@@ -571,6 +842,36 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
           f"{PROB_MEAN_TOL}), max |dp| {max_d:.3e} (tol {PROB_MAX_TOL})")
     check(mean_d <= PROB_MEAN_TOL and max_d <= PROB_MAX_TOL,
           "serving output disagrees with the plain path")
+
+    # Persisted window indexes (3.2 GB of float32 a window in the JAX
+    # package's npz format, so window 0 alone): written for request 0's
+    # missing sites, then the same sites served from them.  The same context
+    # bits give request 0's probabilities exactly.
+    import tempfile
+
+    ref0, target0 = _drop(bundle.ref, sites), _drop(target, sites[keep])
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        manifest = Imputer(model, ref0, bundle.freq, batch_size=32
+                           ).save_window_indexes(tmp, target0)
+        save_s = time.perf_counter() - t
+        served = Imputer(model, ref0, bundle.freq, batch_size=32,
+                         index_dir=tmp)
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = served.impute(target0)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        after = ops.launch_counts()
+    same = all(np.array_equal(getattr(res, f), getattr(results[0], f)[s:e])
+               for f in ("hap1_prob", "hap2_prob", "gt_prob", "imputed_flag"))
+    print(f"index_dir: save_window_indexes {save_s:.2f} s ({manifest}); "
+          f"window 0 of request 0 from the file {sec:.3f} s, l2_topk "
+          f"launches {after['l2_topk'] - before['l2_topk']}, equal to the "
+          f"encoding request {same}")
+    check(same and after["l2_topk"] - before["l2_topk"] == batches // n_win,
+          "a request served from persisted indexes differs")
     if profile:
         profile_request(svc, targets[1][1])
     return counts
@@ -659,7 +960,8 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     peak_fit = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * (micro + val_steps),
             "attention_bwd": m.n_layers * micro,
-            "l2_topk": micro + val_steps, "l2_topk_rf": 0}
+            "l2_topk": micro + val_steps, "l2_topk_rf": 0,
+            "l2_topk_float": 0}
     print(f"fit: {fit_s:.2f} s for {micro} micro-steps ({opt.count} updates) "
           f"+ {val_steps} validation steps + a checkpoint; launches {counts} "
           f"(expected {want}); peak device memory {peak_fit:.2f} GB")
@@ -750,7 +1052,7 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     k_loss, k_grads = _grads_of_one_batch(model, batch, ctx_of, True)
     one = ops.launch_counts()
     check(one == {"attention": m.n_layers, "attention_bwd": m.n_layers,
-                  "l2_topk": 1, "l2_topk_rf": 0},
+                  "l2_topk": 1, "l2_topk_rf": 0, "l2_topk_float": 0},
           f"kernel path launches {one}")
     del model
     model = build_model(plain_cfg, bundle.vocab.size, seed=0)
@@ -836,7 +1138,7 @@ def phase_token_serving(profile: bool = False) -> dict[str, int]:
               f"{n_imp / sec:.0f} imputed genotypes/s")
     counts = ops.launch_counts()
     want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
-            "l2_topk_rf": batches * len(targets)}
+            "l2_topk_rf": batches * len(targets), "l2_topk_float": 0}
     print(f"token launches {counts} (expected {want}: {n_win} windows x "
           f"{batches // n_win} batches x {len(targets)} requests); peak "
           f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -950,7 +1252,7 @@ def phase_token_training(profile: bool = False) -> dict[str, int]:
     counts = ops.launch_counts()
     opt.step = plain_step
     want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
-            "l2_topk_rf": micro + val_steps}
+            "l2_topk_rf": micro + val_steps, "l2_topk_float": 0}
     print(f"token fit (v17_token_rag, batch {tcfg.batch_size}, accumulation "
           f"{tcfg.grad_accum_steps}): {fit_s:.2f} s for {micro} micro-steps "
           f"+ {val_steps} validation steps + a checkpoint; launches {counts} "
@@ -1130,11 +1432,16 @@ def main() -> None:
     t = time.perf_counter()
     kernels.append(phase_l2_rf(gen))
     print(f"l2_topk_rf phase {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    kernels.append(phase_l2_float(gen))
+    print(f"l2_topk_float phase {time.perf_counter() - t:.1f} s")
     paths = {}
     for name, phase in (("serving", phase_serving),
                         ("training", phase_training),
                         ("token_serving", phase_token_serving),
-                        ("token_training", phase_token_training)):
+                        ("token_training", phase_token_training),
+                        ("index", lambda _profile: phase_index(gen))):
         torch.cuda.empty_cache()
         t = time.perf_counter()
         paths[name] = phase(profile)

@@ -3,14 +3,18 @@ and progressive refinement, in embedding-RAG (V18) or token-RAG (V17) mode.
 
 Port of rag_snvbert_tpu/infer/imputer.py.  Kept: fixed-stride (or
 window-table) windows, one-window lookahead of the reference context, the
-threaded query assembly, and the depth-bounded pipeline of device outputs.
-Not ported yet: the no-RAG mode, persisted indexes (``index_dir``), the
-device mesh, and VCF writing.
+threaded query assembly, the depth-bounded pipeline of device outputs, and
+persisted per-window embedding indexes (``save_window_indexes``,
+``index_dir``; the same ``index_{w}.npz`` and ``manifest.json`` as the JAX
+package, so either package's files serve the other).  Not ported yet: the
+no-RAG mode, the device mesh, and VCF writing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -18,6 +22,7 @@ import torch
 from ..data.prefetch import prefetch_iter
 from ..data.tokenize import position_normalize, sequence_padding, tokenize
 from ..device import resolve_device
+from ..index.flat import FlatL2Index
 from ..io.freq import AF, FreqTable
 from ..io.vcf import VCFData
 from ..io.vocab import INFER_WINDOW_LEN, MAX_SEQ_LEN
@@ -53,7 +58,13 @@ class Imputer:
     re-encodes the retrieved segments); ``"none"`` is not ported yet.  The
     model is moved to ``device`` (``None``: the card, raising without one;
     ``"cpu"`` runs off the card).  ``use_kernel=False`` searches with the
-    plain version even on the card (the JAX ``use_pallas=False``)."""
+    plain version even on the card (the JAX ``use_pallas=False``).
+
+    ``index_dir``: load the per-window embedding indexes written by
+    ``save_window_indexes`` instead of encoding the reference panel per
+    window (embedding mode only).  The persisted masks must match the
+    target's missing sites.  The loaded context goes through the same
+    search (``ops.l2_topk``) as an encoded one."""
 
     # Per-site rows that are the same for every sample of a window: sent
     # to the device once per window as [L] and broadcast there.
@@ -65,10 +76,15 @@ class Imputer:
                  ref_pad_haps: int = 2048, batch_size: int = 32,
                  use_kernel: bool = True, window=None,
                  pipeline_depth: int = 8, device=None,
-                 rag_mode: str = "embedding"):
+                 rag_mode: str = "embedding", index_dir: str | None = None):
         if rag_mode not in ("embedding", "token"):
             raise NotImplementedError(f"rag_mode={rag_mode!r}: the no-RAG "
                                       "imputer is not ported yet")
+        if index_dir is not None and rag_mode != "embedding":
+            raise ValueError("persisted indexes exist only for "
+                             "embedding-space RAG (token-space indexes are "
+                             "rebuilt from the tokens)")
+        self.index_dir = index_dir
         self.device = resolve_device(device)
         if rag_mode == "token" and self.device.type == "cuda":
             check_int8_vocab(model)
@@ -100,8 +116,11 @@ class Imputer:
     def _embed(self, tokens: torch.Tensor, af: torch.Tensor) -> torch.Tensor:
         return self.model.embed(tokens, af)
 
-    def _window_ctx(self, s: int, e: int, site_mask: np.ndarray
+    def _window_ctx(self, s: int, e: int, site_mask: np.ndarray,
+                    w: int | None = None
                     ) -> WindowRefContext | TokenWindowContext:
+        """Window ``w`` (sites ``s:e``)'s search context: encoded, or with
+        ``index_dir`` loaded from ``index_{w}``."""
         raw = self.ref_vcf.gt[s:e]                    # [n, S, 2]
         raw = raw.reshape(raw.shape[0], -1).T          # [2S, n]
         toks = tokenize(raw, None, self.seq_len).astype(np.int32)
@@ -118,6 +137,15 @@ class Imputer:
                                           valid=self._tensor(valid))
         af = sequence_padding(self.freq.lookup(
             AF, self.freq.global_idx, self.ref_vcf.pos[s:e]), self.seq_len)
+        if self.index_dir is not None:
+            idx = FlatL2Index.load(os.path.join(self.index_dir,
+                                                f"index_{w}"),
+                                   device=self.device)
+            n = idx.vectors.shape[0]
+            return WindowRefContext(
+                ref_emb_search=idx.vectors.reshape(n, self.seq_len, -1),
+                ref_tokens=self._tensor(toks), ref_af=self._tensor(af),
+                ref_norms=idx.norms)
         return encode_window_refs(self._embed, self._tensor(toks),
                                   self._tensor(af), self._tensor(wmask),
                                   valid=self._tensor(valid))
@@ -133,6 +161,44 @@ class Imputer:
                 chrom=target.chrom[order], ref=target.ref[order],
                 alt=target.alt[order], ids=target.ids[order])
         return target
+
+    def _present(self, target: VCFData) -> tuple[np.ndarray, np.ndarray]:
+        """``(present, rows)`` over the reference sites: whether the
+        (sorted) target has the site, and its target row where it does."""
+        found = np.searchsorted(target.pos, self.ref_vcf.pos)
+        found = np.clip(found, 0, max(len(target.pos) - 1, 0))
+        present = (target.pos[found] == self.ref_vcf.pos) if len(target.pos) \
+            else np.zeros(self.ref_vcf.n_variants, bool)
+        return present, found
+
+    @torch.inference_mode()
+    def save_window_indexes(self, out_dir: str, target: VCFData) -> dict:
+        """Persist each window's embedding-space index for ``target``'s
+        missing sites as ``out_dir/index_{w}.npz`` (``FlatL2Index.save``:
+        the masked references' embeddings ``[N, L * D]`` bf16 and their
+        norms, +inf on padding rows) and ``manifest.json``
+        (``{"windows", "d", "seq_len"}``).  Offline parity with the
+        reference's per-window FAISS files; JAX imputer.py:216-255."""
+        if self.rag_mode != "embedding":
+            raise ValueError("indexes are embedding-space")
+        if self.index_dir is not None:
+            raise ValueError("this Imputer loads persisted indexes; build "
+                             "the files with an Imputer constructed without "
+                             "index_dir")
+        os.makedirs(out_dir, exist_ok=True)
+        present, _ = self._present(self._sorted_target(target))
+        manifest = {"windows": len(self.windows), "d": None,
+                    "seq_len": self.seq_len}
+        for w, (s, e) in enumerate(self.windows):
+            ctx = self._window_ctx(s, e, ~present[s:e], w)
+            n = ctx.ref_emb_search.shape[0]
+            vectors = ctx.ref_emb_search.reshape(n, -1)
+            FlatL2Index(vectors=vectors, norms=ctx.ref_norms).save(
+                os.path.join(out_dir, f"index_{w}"))
+            manifest["d"] = int(vectors.shape[1])
+        with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        return manifest
 
     def _forward(self, batch: dict,
                  ctx: WindowRefContext | TokenWindowContext):
@@ -166,11 +232,7 @@ class Imputer:
         gtp = np.zeros((n_sites, n_samp, 4), np.float32)
 
         # position_needed: ref-panel sites missing from the target VCF
-        found = np.searchsorted(target.pos, self.ref_vcf.pos)
-        found = np.clip(found, 0, max(len(target.pos) - 1, 0))
-        present = (target.pos[found] == self.ref_vcf.pos) if len(target.pos) \
-            else np.zeros(n_sites, bool)
-        target_rows = found  # valid where present
+        present, target_rows = self._present(target)
 
         pop_idx = self.freq.global_idx if pop is None else pop
         L = self.seq_len
@@ -178,7 +240,7 @@ class Imputer:
 
         def make_ctx(w):
             s, e = self.windows[w]
-            return self._window_ctx(s, e, ~present[s:e])
+            return self._window_ctx(s, e, ~present[s:e], w)
 
         def assemble(w):
             """Host-side query assembly for one window (pure numpy):

@@ -11,12 +11,17 @@ rag_snvbert_tpu/interop/torch_ckpt.py:52-72):
   FrozenBatchNorm ``scale``       -> ``weight`` (``mean``/``var`` buffers)
   Embed ``embedding``             -> Embedding ``weight``
 
-Scalars (``res_scale``) stay scalars.  A leftover or missing leaf raises.
+Scalars (``res_scale``) stay scalars.  A tree of a ``scan_layers=True``
+model keeps the encoder's blocks at ``encoder/blocks/...`` with a leading
+``[n_layers]`` axis (flax ``nn.scan``); they are unstacked leaf by leaf
+into ``encoder/block_{i}/...`` first.  A leftover or missing leaf raises.
 
 ``load_optax_adam_state`` carries an optax Adam state (``mu``, ``nu``,
 ``count``, and the ``MultiSteps`` fields around it) into the port's
 ``train.schedule.Optimizer`` by the same rules, so one update can be held
-against optax from the same state.
+against optax from the same state.  flax keeps ``FrozenBatchNorm``'s
+``mean``/``var`` as stop-gradient parameters, so optax has moments for
+them; the port keeps them as buffers, whose moments must be zeros.
 """
 
 from __future__ import annotations
@@ -41,6 +46,27 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return out
 
 
+def _unstack_scanned(flat: dict[tuple, np.ndarray]
+                     ) -> dict[tuple, np.ndarray]:
+    """``(..., encoder, blocks, *rest)`` leaves of ``[n_layers, ...]`` ->
+    ``(..., encoder, block_{i}, *rest)`` leaves, one a layer."""
+    out = {}
+    for path, arr in flat.items():
+        at = [j for j in range(len(path) - 1)
+              if path[j:j + 2] == ("encoder", "blocks")]
+        if not at:
+            out[path] = arr
+            continue
+        j = at[0]
+        for i in range(arr.shape[0]):
+            out[path[:j + 1] + (f"block_{i}",) + path[j + 2:]] = arr[i]
+    return out
+
+
+def _leaves(tree: Mapping) -> dict[tuple, np.ndarray]:
+    return _unstack_scanned(_flatten(tree))
+
+
 def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
     if leaf == "kernel" and arr.ndim == 2:
         return arr.T
@@ -62,7 +88,7 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     state = model.state_dict()
     seen = set()
     extra = []
-    for path, arr in _flatten(params).items():
+    for path, arr in _leaves(params).items():
         key = _torch_key(path)
         if key not in state:
             extra.append("/".join(path))
@@ -92,14 +118,23 @@ def _find(state, want: str):
     return []
 
 
-def _tree_into(optimizer, tree: Mapping, what: str) -> dict:
+def _tree_into(optimizer, tree: Mapping, what: str,
+               buffers: frozenset = frozenset()) -> dict:
     """A flax-layout tree of float32 leaves -> ``{parameter name: tensor}``
-    for ``optimizer``'s parameters; raises on a leftover or missing leaf."""
+    for ``optimizer``'s parameters; raises on a leftover or missing leaf.
+    Leaves of ``buffers`` (the model's buffer names) are skipped once they
+    are checked to be zeros."""
     shapes = {n: tuple(p.shape) for n, p in zip(optimizer.names,
                                                  optimizer.params)}
     out, extra = {}, []
-    for path, arr in _flatten(tree).items():
+    for path, arr in _leaves(tree).items():
         name = _torch_key(path)
+        if name in buffers and name not in shapes:
+            if np.any(arr):
+                raise ValueError(f"{what} {'/'.join(path)}: the port keeps "
+                                 f"{name} as a buffer, without moments, but "
+                                 "the optax state has non-zero ones")
+            continue
         if name not in shapes:
             extra.append("/".join(path))
             continue
@@ -116,12 +151,16 @@ def _tree_into(optimizer, tree: Mapping, what: str) -> dict:
 
 
 @torch.no_grad()
-def load_optax_adam_state(optimizer, opt_state) -> None:
+def load_optax_adam_state(optimizer, opt_state,
+                          model: nn.Module | None = None) -> None:
     """Copy an optax state of ``make_optimizer``'s chain (clip -> adamw ->
     schedule, optionally inside ``MultiSteps``) into ``optimizer``:
     Adam's ``mu``/``nu`` by the layout rules above, its ``count`` (which
     must equal the schedule's), and ``mini_step``/``acc_grads`` of
-    MultiSteps.  The optimizer's ``accum_steps`` must match the state."""
+    MultiSteps.  The optimizer's ``accum_steps`` must match the state.
+    ``model``: the optimizer's model, whose buffers (``FrozenBatchNorm``'s
+    ``mean``/``var``) have zero moments in the state and are skipped; a
+    state with such leaves needs it."""
     multi = hasattr(opt_state, "mini_step")
     if multi != (optimizer.acc is not None):
         raise ValueError("optax state and optimizer disagree on gradient "
@@ -132,10 +171,12 @@ def load_optax_adam_state(optimizer, opt_state) -> None:
     if len(adam) != 1 or len(counts) != 1:
         raise ValueError("expected one Adam state and one update count in "
                          f"the optax state, found {len(adam)} and {counts}")
+    buffers = frozenset(() if model is None else
+                        (name for name, _ in model.named_buffers()))
     optimizer.load_state_dict({
         "count": counts.pop(),
         "mini_step": int(np.asarray(opt_state.mini_step)) if multi else 0,
-        "mu": _tree_into(optimizer, adam[0].mu, "mu"),
-        "nu": _tree_into(optimizer, adam[0].nu, "nu"),
-        "acc": (_tree_into(optimizer, opt_state.acc_grads, "acc")
+        "mu": _tree_into(optimizer, adam[0].mu, "mu", buffers),
+        "nu": _tree_into(optimizer, adam[0].nu, "nu", buffers),
+        "acc": (_tree_into(optimizer, opt_state.acc_grads, "acc", buffers)
                 if multi else None)})

@@ -24,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("attention", "attention_bwd", "l2_topk", "l2_topk_rf")
+KERNELS = ("attention", "attention_bwd", "l2_topk", "l2_topk_rf",
+           "l2_topk_float")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -106,7 +107,8 @@ def ptxas_entries(name: str) -> list[tuple[str, int, int, int]]:
 
 def _demangle(symbol: str) -> str:
     """``attention_fwd_kernel<128>`` from an Itanium-mangled kernel name
-    (namespaces dropped, one integer template argument kept)."""
+    (namespaces dropped; integer and bool template arguments kept, as in
+    ``l2f_split_topk<0,64,2>``)."""
     if not symbol.startswith("_Z"):
         return symbol
     i, name = (3 if symbol.startswith("_ZN") else 2), symbol
@@ -115,8 +117,10 @@ def _demangle(symbol: str) -> str:
         while symbol[j].isdigit():
             j += 1
         name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
-    arg = re.match(r"ILi(\d+)E", symbol[i:])
-    return f"{name}<{arg.group(1)}>" if arg else name
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", symbol[i:])
+    if not args:
+        return name
+    return f"{name}<{','.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>"
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:

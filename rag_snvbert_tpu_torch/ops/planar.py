@@ -1,5 +1,6 @@
 """Planar bit-packing of small-integer vectors for ``l2_topk_rf``'s
-``pack > 1`` path.
+``pack > 1`` path, and the TPU kernel's tile rules that fix an aligned
+index's padded shape.
 
 Copy of rag_snvbert_tpu/ops/l2_topk_pallas.py:140-192 (``pack_planar``,
 ``planar_unpack``, ``planar_sq_norms``); the outputs are bit-identical.
@@ -18,6 +19,36 @@ import torch
 import torch.nn.functional as F
 
 PACKS = (2, 4, 8)
+
+
+# ---- the padded shape of an aligned index ----
+# Copies of rag_snvbert_tpu/ops/l2_topk_pallas.py:112-137.  The CUDA
+# kernels need no TPU tiles; FlatL2Index.build(align=True) pads to them so
+# that both packages write and read the same npz files.  ``dtype`` is a
+# torch dtype or "int4" (one byte a value in the port's storage).
+
+def _itemsize(dtype) -> int:
+    return 1 if dtype == "int4" else dtype.itemsize
+
+
+def default_td(d: int, dtype) -> int:
+    """The TPU kernel's d tile: 2048 columns for 1-2 byte values, 1024 for
+    4, at most d rounded up to 128."""
+    td = 2048 if _itemsize(dtype) <= 2 else 1024
+    return min(td, -(-max(d, 128) // 128) * 128)
+
+
+def default_tn(dtype) -> int:
+    """The TPU kernel's ref tile: 2048 rows for 1-byte values, else 1024."""
+    return 2048 if _itemsize(dtype) == 1 else 1024
+
+
+def ref_alignment(d: int, dtype, tn: int | None = None) -> tuple[int, int]:
+    """(row multiple, padded d) of an aligned index of ``d`` columns."""
+    if tn is None:
+        tn = default_tn(dtype)
+    td = default_td(d, dtype)
+    return tn, -(-max(d, 128) // td) * td
 
 
 def packed_width(d: int, pack: int) -> int:

@@ -158,7 +158,8 @@ def test_attention_is_differentiable_through_the_kernels(cuda):
     assert out.grad_fn is not None
     out.float().square().sum().backward()
     assert ops.launch_counts() == {"attention": 1, "attention_bwd": 1,
-                                   "l2_topk": 0, "l2_topk_rf": 0}
+                                   "l2_topk": 0, "l2_topk_rf": 0,
+                                   "l2_topk_float": 0}
     qp, kp, vp = (x.detach().float().requires_grad_() for x in (q, k, v))
     attention_plain(qp, kp, vp, 0.125).square().sum().backward()
     for a, b in ((q, qp), (k, kp), (v, vp)):
@@ -293,7 +294,8 @@ def test_small_model_serves_on_the_card_like_on_the_cpu(cuda):
     on_card = Imputer(build_model(cfg, b.vocab.size, seed=1), b.ref, b.freq,
                       **kw).impute(target)
     assert ops.launch_counts() == {"attention": 2 * 2, "attention_bwd": 0,
-                                   "l2_topk": 2, "l2_topk_rf": 0}
+                                   "l2_topk": 2, "l2_topk_rf": 0,
+                                   "l2_topk_float": 0}
     on_cpu = Imputer(build_model(cfg, b.vocab.size, device="cpu", seed=1),
                      b.ref, b.freq, device="cpu", **kw).impute(target)
     miss = on_card.imputed_flag
@@ -340,7 +342,8 @@ def test_small_model_trains_on_the_card_like_on_the_cpu(cuda):
             torch.cuda.synchronize()
             assert ops.launch_counts() == {"attention": 2,
                                            "attention_bwd": 2, "l2_topk": 1,
-                                           "l2_topk_rf": 0}
+                                           "l2_topk_rf": 0,
+                                           "l2_topk_float": 0}
         results[dev] = (stats["loss"].item(), stats["grad_norm"].item(),
                         {n: p.detach().cpu()
                          for n, p in model.named_parameters()})
@@ -605,7 +608,8 @@ def test_small_token_model_trains_on_the_card_like_on_the_cpu(cuda):
             torch.cuda.synchronize()
             assert ops.launch_counts() == {"attention": 0,
                                            "attention_bwd": 0, "l2_topk": 0,
-                                           "l2_topk_rf": 2}
+                                           "l2_topk_rf": 2,
+                                           "l2_topk_float": 0}
         results[dev] = (stats["loss"].item(), stats["grad_norm"].item(),
                         segs["rag_seg_h1"].cpu(),
                         {n: p.detach().cpu()
@@ -640,3 +644,207 @@ def test_token_ids_beyond_int8_raise_on_the_card(cuda):
     assert out["rag_seg_h1"].shape == (2, 1, 48)
     with pytest.raises(ValueError, match="fit int8"):
         retrieval.check_int8_vocab(build_model(_token_cfg(), 200))
+
+
+# ---- l2_topk_float and the offline index on the card ----
+
+# Pass 1's tiles: 128 queries, 128 (k <= 32) or 64 ref rows, chunks of 32
+# float32 / 64 bf16 columns; B and N at, below and above a tile, d below a
+# 16-byte row (1, 37: the wrapper pads), at one (8), and several chunks
+# (2040, 4096); k in both block configurations; N < k.
+FLOAT_CASES = [  # (b, n, d, k)
+    (1, 1, 1, 1), (63, 191, 8, 10), (64, 192, 37, 128), (65, 49153, 8, 1),
+    (1025, 200, 37, 128), (1, 200000, 2040, 10), (65, 191, 4096, 33),
+    (64, 1, 2040, 10), (63, 49153, 37, 128), (1025, 20000, 8, 10),
+    (3, 50001, 37, 128), (1, 192, 4096, 1), (65, 200000, 1, 10),
+    (130, 20000, 4096, 32), (5, 3, 16, 128),
+]
+# float32 sums of up to 4096 products in another order than the plain
+# version's matmul: values to 1e-5 of |q|^2 + |r|^2, and where ids differ
+# the float64 distances of both rows lie that close (a near-tie).
+FLOAT_TOL = 1e-5
+
+
+def _float_case(b, n, d, dtype, seed, dev, gauss=True):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if gauss:
+        q = torch.randn(b, d, generator=gen, device=dev)
+        r = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    else:
+        q = torch.randint(0, 2, (b, d), generator=gen, device=dev).float()
+        r = torch.randint(0, 2, (n, d), generator=gen, device=dev).to(dtype)
+    rn = l2_ref.squared_norms(r)
+    if n > 3:
+        rn[[1, n // 2]] = float("inf")      # tombstones: never ahead
+    return q, r, rn
+
+
+def _float_tie_aware(q, r, rn, got, want):
+    (v, i), (pv, pi) = got, want
+    inf = torch.isinf(pv)
+    assert torch.equal(torch.isinf(v), inf)
+    assert torch.equal(i[inf], pi[inf])          # +inf rows in id order, -1
+    scale = (l2_ref.squared_norms(q.to(r.dtype)).double()[:, None]
+             + rn.double()[pi.clamp_min(0).long()])
+    fin = ~inf
+    err = ((v.double() - pv.double()).abs() / scale)[fin]
+    assert err.numel() == 0 or err.max().item() <= FLOAT_TOL
+    diff = (i != pi) & fin
+    if diff.any():
+        rows = diff.nonzero()[:, 0]
+        qd = q.to(r.dtype).double()[rows]
+        d_got = ((qd - r.double()[i[diff].long()]) ** 2).sum(-1)
+        d_want = ((qd - r.double()[pi[diff].long()]) ** 2).sum(-1)
+        assert ((d_got - d_want).abs() / scale[diff]).max().item() \
+            <= FLOAT_TOL
+    for row in i.cpu().tolist():
+        ids = [x for x in row if x >= 0]
+        assert len(set(ids)) == len(ids)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,n,d,k", FLOAT_CASES)
+def test_l2_topk_float_kernel_matches_plain(cuda, b, n, d, k, dtype):
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import (
+        l2_topk_float, l2_topk_float_plain)
+
+    q, r, rn = _float_case(b, n, d, dtype, 11, cuda)
+    before = ops.launch_counts()["l2_topk_float"]
+    got = l2_topk_float(q, r, rn, k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["l2_topk_float"] == before + 1
+    assert got[0].shape == got[1].shape == (b, k)
+    assert got[1].dtype == torch.int32
+    _float_tie_aware(q, r, rn, got, l2_topk_float_plain(q, r, rn, k))
+    again = l2_topk_float(q, r, rn, k)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_l2_topk_float_genotypes_are_exact(cuda, dtype):
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import (
+        l2_topk_float, l2_topk_float_plain)
+
+    q, r, rn = _float_case(100, 30000, 2040, dtype, 12, cuda, gauss=False)
+    got = l2_topk_float(q, r, rn, 10)
+    want = l2_topk_float_plain(q, r, rn, 10)
+    # integer distances below 2^24: ids and values exactly equal
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_l2_topk_float_ties_go_to_the_lower_id(cuda):
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import l2_topk_float
+
+    q, r, rn = _float_case(10, 60000, 40, torch.float32, 13, cuda)
+    r[50000:50010] = r[:10]
+    r[20000:20010] = r[:10]
+    rn = l2_ref.squared_norms(r)
+    _, ids = l2_topk_float(r[:10].clone(), r, rn, 3)
+    want = torch.stack([torch.arange(10), torch.arange(20000, 20010),
+                        torch.arange(50000, 50010)], 1)
+    assert torch.equal(ids.cpu().long(), want)
+
+
+def test_l2_topk_float_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import l2_topk_float
+
+    q, r, rn = _float_case(4, 300, 40, torch.float32, 14, cuda)
+    with pytest.raises(ValueError, match="int8"):
+        l2_topk_float(q, r.to(torch.int8), rn, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        l2_topk_float(q, r.t().contiguous().t(), rn, 3)
+    with pytest.raises(ValueError, match="not on"):
+        l2_topk_float(q, r.cpu(), rn, 3)
+    with pytest.raises(ValueError, match="not on"):
+        l2_topk_float(q, r, rn.cpu(), 3)
+    with pytest.raises(ValueError, match="k=129"):
+        l2_topk_float(q, r, rn, 129)
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 128])
+def test_l2_topk_float_smem_plan_is_the_kernels(cuda, k):
+    import importlib
+
+    from rag_snvbert_tpu_torch.ops import _build
+
+    lf = importlib.import_module("rag_snvbert_tpu_torch.ops.l2_topk_float")
+    lib = _build.load("l2_topk_float", lf._SIGNATURES)
+    cfg = lf.block_config(k)
+    assert lib.l2_topk_float_smem(*cfg) == lf.smem_bytes(*cfg)
+
+
+def _index_routes():
+    # (storage, n, d, kernel the search launches)
+    return [("f32", 3000, 45, "l2_topk_float"),
+            ("bf16", 3000, 48, "l2_topk"),
+            ("bf16", 60000, 45, "l2_topk_float"),
+            ("int8", 3000, 45, "l2_topk_rf"),
+            ("int4", 3000, 45, "l2_topk_rf"),
+            ("pack8", 3000, 45, "l2_topk_rf"),
+            ("pack4", 3000, 45, "l2_topk_rf")]
+
+
+@pytest.mark.parametrize("align", [False, True])
+@pytest.mark.parametrize("storage,n,d,kernel", _index_routes())
+def test_flat_index_routes_to_a_kernel_on_the_card(cuda, storage, n, d,
+                                                   kernel, align):
+    from rag_snvbert_tpu_torch.index import FlatL2Index
+
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    hi = 4 if storage in ("pack4", "int4") else 2
+    bits = torch.randint(0, hi, (n, d), generator=gen, device=cuda)
+    q = torch.randint(0, hi, (33, d), generator=gen, device=cuda).float()
+    if storage.startswith("pack"):
+        idx = FlatL2Index.build(bits.to(torch.int8), pack=int(storage[4:]),
+                                align=align)
+    else:
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.int8, "int4": "int4"}[storage]
+        idx = FlatL2Index.build(bits.float(), dtype=dt, align=align)
+    mask = torch.rand(d, generator=gen, device=cuda) > 0.3
+    for search in (lambda **kw: idx.search(q, 10, **kw),
+                   lambda **kw: idx.masked_search(q, mask, 10, **kw)):
+        ops.reset_launches()
+        plain = search(use_pallas=False)
+        assert not any(ops.launch_counts().values())
+        got = search(use_pallas=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts[kernel] == 1 and sum(counts.values()) == 1, counts
+        # integer distances: exactly the plain answers
+        assert torch.equal(got[1], plain[1]) and torch.equal(got[0], plain[0])
+
+
+def test_flat_index_size_rule_on_the_card(cuda):
+    from rag_snvbert_tpu_torch.index import FlatL2Index
+
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    idx = FlatL2Index.build(torch.randint(0, 2, (66000, 24), generator=gen,
+                                          device=cuda).float())
+    q = torch.randint(0, 2, (1024, 24), generator=gen, device=cuda).float()
+    ops.reset_launches()
+    small = idx.search(q[:8], 5)          # 4 B N below 2^28: plain
+    assert not any(ops.launch_counts().values())
+    big = idx.search(q, 5)                # above: the kernel
+    assert ops.launch_counts()["l2_topk_float"] == 1
+    assert torch.equal(big[1][:8], small[1])
+    # k above 128 streams (torch ops), on the card too
+    ops.reset_launches()
+    v, i = idx.search(q[:4], 200)
+    assert i.shape == (4, 200) and not any(ops.launch_counts().values())
+
+
+def test_hamming_index_on_the_card_matches_the_cpu(cuda):
+    from rag_snvbert_tpu_torch.index import HammingIndex
+
+    rng = np.random.default_rng(17)
+    bits = rng.integers(0, 2, (5000, 100)).astype(np.int8)
+    qb = torch.from_numpy(rng.integers(0, 2, (20, 100)).astype(np.int8))
+    card = HammingIndex.build(bits)
+    host = HammingIndex.build(bits, device="cpu")
+    for streaming in (False, True):
+        a = card.search(qb, 7, streaming=streaming, chunk=1024)
+        b = host.search(qb, 7, streaming=streaming, chunk=1024)
+        assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1])
