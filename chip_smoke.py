@@ -1415,9 +1415,15 @@ def main() -> None:
               f"stores/loads bytes): "
               + "; ".join(f"{k} {r}, {st}/{ld}" for k, r, st, ld
                           in _build.ptxas_entries(name)))
-        for line in _build.ptxas_log(name).splitlines():
-            if "Performance Loss" in line:
-                print(f"    {line.strip()}")
+        notes = [line.strip() for line in _build.ptxas_log(name).splitlines()
+                 if "Performance Loss" in line]
+        for line in notes:
+            print(f"    {line}")
+        # a spill, or ptxas serializing a kernel's wgmma pipeline (an info
+        # note, 25-30% slower), is a fault of the build
+        check(not notes and all(st == ld == 0 for _, _, st, ld
+                                in _build.ptxas_entries(name)),
+              f"ptxas spilled or serialized wgmma in {name}.cu")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -2,8 +2,9 @@
 // mbarriers, TMA tile loads through a CUtensorMap (3-D for the attention
 // kernels' [heads, L, hd], 2-D for the search kernels' matrices), the
 // register hand-over between warpgroups (setmaxnreg), wgmma shared-memory
-// descriptors, the m64nNk16 bf16 wgmma products with fp32 accumulators and
-// the m64nNk32 int8 products with int32 accumulators.
+// descriptors, the m64nNk16 bf16 and m64nNk8 tf32 wgmma products with fp32
+// accumulators, the m64nNk32 int8 products with int32 accumulators, and the
+// split of a float32 into two TF32 parts.
 //
 // Tile format.  Every [rows, HD] bf16 tile in shared memory is HD / kCols
 // "panels" of [rows, kCols], one after another; a panel row is kSwizzle
@@ -511,6 +512,59 @@ struct WgmmaS8<192> {
         : "l"(a), "l"(b), "r"(acc));
   }
 };
+
+// wgmma.mma_async m64nNk8, tf32 inputs (both K-major in shared memory: tf32
+// takes no transpose), fp32 accumulator d (the layout of the bf16 products
+// above).  An operand is float32 words of which the tensor cores read the
+// top 19 bits; a k8 step is 32 bytes, as a k16 step of bf16 is, so the
+// descriptors are desc_k128's.
+template <int N>
+struct WgmmaTF32;
+
+template <>
+struct WgmmaTF32<128> {
+  static __device__ __forceinline__ void ss(
+      float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+// x = hi + lo to 21-22 of float32's 24 bits: hi is x rounded to TF32's 10
+// mantissa bits (to nearest, ties away from zero: half an ulp added to the
+// magnitude's bits, the low 13 cleared), lo = x - hi (exact) rounded the
+// same way; each a float32 whose low 13 bits are zero, so that the tensor
+// cores read it exactly and a TF32 product of two is exact.  Three TF32
+// products a pair (hi*hi + hi*lo + lo*hi) where one keeps 11 bits.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  lo = __uint_as_float((__float_as_uint(x - hi) + 0x1000u) & 0xffffe000u);
+}
 
 // ---- host: tensor maps ----
 //

@@ -17,9 +17,15 @@ port's other two searches: distances are exact float32 values, not the
 TPU's 2^(id_bits+1)-ULP sort keys; ``+inf`` rows rank after every finite
 row in id order; slots past the last row hold ``(+inf, -1)``.  float32
 products are three TF32 products a pair (what ``Precision.HIGHEST`` asks
-for), bf16 products are exact with float32 sums.  The wrapper pads d with
-zero columns to a multiple of 8 (16-byte rows) where it must, plans the
-split of the ref rows (``split_plan``) and owns the workspace.
+for), bf16 products are exact with float32 sums.  Pass 1 is a
+warp-specialized TMA/mbarrier ring feeding wgmma products, with the
+selection as the products' epilogue; in float32 a pre-pass splits each
+value into its TF32 parts once a call (the refs a batch of rows at a time,
+``_SPLIT_BYTES`` of parts at most).  The wrapper
+pads d with zero columns to a multiple of 8 (16-byte rows, what TMA takes)
+where it must, plans the batches and the split of their rows
+(``batch_plan``, ``split_plan``) and the ring's depth within the block's
+shared memory (``smem_bytes``, ``block_config``), and owns the workspace.
 ``l2_topk_float`` takes the plain version for CPU tensors only; a CUDA
 tensor goes to the kernel, or the wrapper raises on what the kernel does
 not take.
@@ -38,11 +44,18 @@ from . import _build, l2_ref
 MAX_K = 128
 DTYPES = (torch.float32, torch.bfloat16)
 _BQ = 128             # queries per pass-1 block (csrc/l2_topk_float.cu kBQ)
-_LD = 36              # words a staged row (kLd)
+_BN = 128             # ref rows per tile (kBN)
+_PANEL = 128 * 128    # bytes of one swizzled panel: 128 rows x 128 bytes
+_MAX_STAGES = 4       # ring stages at most (kMaxStages)
+_SMEM_MAX = 232448    # dynamic shared memory a block may use on an H100
+_SPLIT_BYTES = 1 << 30  # float32: the refs' TF32 parts of one batch of rows
 _PLAIN_CHUNK = 65536  # ref rows per step of the plain version
-_SIGNATURES = {"l2_topk_float": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-               + [ctypes.c_void_p],
-               "l2_topk_float_smem": [ctypes.c_int] * 3}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"l2_topk_float_prep": [_P] * 4 + [_I] * 3 + [_P],
+               "l2_topk_float_split": [_P] * 3 + [ctypes.c_longlong, _P],
+               "l2_topk_float_pass1": [_P] * 8 + [_I] * 10 + [_P],
+               "l2_topk_float_merge": [_P] * 4 + [_I] * 3 + [_P],
+               "l2_topk_float_smem": [_I] * 2}
 
 
 def l2_topk_float_plain(queries: torch.Tensor, refs: torch.Tensor,
@@ -76,38 +89,69 @@ def l2_topk_float_plain(queries: torch.Tensor, refs: torch.Tensor,
     return best_v, best_i.to(torch.int32)
 
 
-def block_config(k: int) -> tuple[int, int, int]:
-    """``(bn, stages, kp)`` of pass 1: ref rows a tile, ring stages and the
-    entries a list is laid out with.  k <= 32: 128-row tiles, three stages,
-    32-entry lists; else 64-row tiles, two stages, k rounded up to 32."""
-    if k <= 32:
-        return 128, 3, 32
-    return 64, 2, -(-k // 32) * 32
+def list_stride(k: int) -> int:
+    """``kp``: the entries a row's list is laid out with, 16 for k <= 16,
+    else k rounded up to 32."""
+    return 16 if k <= 16 else -(-k // 32) * 32
 
 
-def smem_bytes(bn: int, stages: int, kp: int) -> int:
-    """Shared memory of one pass-1 block: the twin of ``smem_bytes`` in
-    ``csrc/l2_topk_float.cu`` (``l2_topk_float_smem``).  The ring (query
-    and ref rows of 36 words each stage), the distance tile (rows of bn + 8
-    floats), the 128 lists and |q|^2 (doubles)."""
-    return (stages * (_BQ + bn) * _LD * 4 + _BQ * (bn + 8) * 4
-            + _BQ * kp * 8 + _BQ * 8)
+def smem_bytes(kp: int, stages: int) -> int:
+    """Shared memory of one pass-1 block: the twin of ``Layout`` in
+    ``csrc/l2_topk_float.cu`` (``l2_topk_float_smem``).  The ring's stages
+    of four panels of 128 rows x 128 bytes (bf16: two chunks of d of the
+    queries and of the ref rows; float32: one, of their TF32 hi and lo
+    parts), the 128 rows' sorted lists (distances and ids, ``kp`` entries
+    each), the two consumers' tile norms, the mbarriers, and the slack to
+    align to the 1024-byte swizzle period."""
+    return (stages * 4 * _PANEL + 2 * _BQ * kp * 4 + 2 * _BN * 4
+            + 2 * _MAX_STAGES * 8 + 1024)
 
 
-def split_plan(b: int, n: int, sm_count: int, bn: int) -> tuple[int, int]:
-    """(splits, rows per split) of the ref rows for pass 1: whole tiles of
-    ``bn`` rows, as many splits as keep the grid (query tiles x splits)
-    within one wave of one block an SM."""
-    n_tiles = max(1, -(-n // bn))
+def ring_stages(kp: int) -> int:
+    """The deepest ring that fits the block's shared memory."""
+    return max(s for s in range(1, _MAX_STAGES + 1)
+               if smem_bytes(kp, s) <= _SMEM_MAX)
+
+
+def block_config(k: int) -> tuple[int, int]:
+    """``(kp, stages)`` of pass 1, the arguments of ``l2_topk_float_smem``:
+    k <= 16 takes 16-entry lists, else k rounded up to 32; the ring of
+    64 KB stages shrinks as the lists grow, from 3 stages at k <= 32 to 1
+    at k > 96."""
+    kp = list_stride(k)
+    return kp, ring_stages(kp)
+
+
+def split_plan(b: int, n: int, sm_count: int) -> tuple[int, int]:
+    """(splits, rows per split) of ``n`` ref rows for pass 1: whole tiles of
+    128 rows, as many splits as keep the grid (query tiles x splits) within
+    one wave of one block an SM (long splits: a row's list changes about
+    k (1 + ln(rows / k)) times a split)."""
+    n_tiles = max(1, -(-n // _BN))
     q_tiles = -(-b // _BQ)
     want = max(1, min(n_tiles, sm_count // q_tiles))
-    rows = -(-n_tiles // want) * bn
+    rows = -(-n_tiles // want) * _BN
     return max(1, -(-n // rows)), rows
+
+
+def batch_plan(b: int, n: int, width: int, bf16: bool, sm_count: int
+               ) -> list[tuple[int, int, int, int]]:
+    """``[(first row, rows, splits, rows per split)]``: the batches of ref
+    rows that pass 1 takes one launch each, in id order.  bf16 takes all
+    rows at once; float32 takes as many as keep their TF32 hi and lo parts
+    (a workspace of 2 x rows x width floats, made once a batch) within
+    ``_SPLIT_BYTES``.  No batch for N = 0."""
+    step = (max(n, 1) if bf16
+            else max(_BN, _SPLIT_BYTES // (8 * width) // _BN * _BN))
+    return [(r0, min(step, n - r0), *split_plan(b, min(step, n - r0),
+                                                 sm_count))
+            for r0 in range(0, n, step)]
 
 
 def padded_width(d: int) -> int:
     """The width the kernel reads: d rounded up to 8 columns, so that every
-    row starts on 16 bytes in both dtypes."""
+    row starts on 16 bytes in both dtypes (TMA's row stride is a multiple
+    of 16 bytes; columns past d are zeros)."""
     return -(-max(d, 1) // 8) * 8
 
 
@@ -164,32 +208,58 @@ def l2_topk_float(queries: torch.Tensor, refs: torch.Tensor,
             raise ValueError(f"l2_topk_float: {name} must be contiguous")
     b, d = queries.shape
     n = refs.shape[0]
-    vals = torch.empty(b, k, dtype=torch.float32, device=queries.device)
-    ids = torch.empty(b, k, dtype=torch.int32, device=queries.device)
+    dev = queries.device
+    vals = torch.empty(b, k, dtype=torch.float32, device=dev)
+    ids = torch.empty(b, k, dtype=torch.int32, device=dev)
     if b == 0:
         return vals, ids
     dp = padded_width(d)
     q = _padded(queries.to(refs.dtype), dp)
     r = _padded(refs, dp)
-    bn, _, kp = block_config(k)
-    index = queries.device.index
-    sms = _sm_count(torch.cuda.current_device() if index is None else index)
-    splits, rows = split_plan(b, n, sms, bn)
-    if splits == 1:
+    bf16 = refs.dtype == torch.bfloat16
+    kp, stages = block_config(k)
+    sms = _sm_count(torch.cuda.current_device() if dev.index is None
+                    else dev.index)
+    plan = batch_plan(b, n, dp, bf16, sms)
+    splits = sum(p[2] for p in plan)
+    if splits == 1:                     # pass 1 writes the answer
         part_v, part_i = vals, ids
     else:
-        part_v = torch.empty(splits, b, k, dtype=torch.float32,
-                             device=queries.device)
-        part_i = torch.empty(splits, b, k, dtype=torch.int32,
-                             device=queries.device)
+        part_v = torch.empty(splits, b, k, dtype=torch.float32, device=dev)
+        part_i = torch.empty(splits, b, k, dtype=torch.int32, device=dev)
+    qn = torch.empty(b, dtype=torch.float64, device=dev)
+    q_hi = q_lo = r_hi = r_lo = None
+    if not bf16:                        # the TF32 parts
+        q_hi, q_lo = torch.empty_like(q), torch.empty_like(q)
+        if plan:
+            r_hi, r_lo = torch.empty(2, plan[0][1], dp, dtype=torch.float32,
+                                     device=dev)
+    ptr = (lambda x: None if x is None else x.data_ptr())
     lib = _build.load("l2_topk_float", _SIGNATURES)
-    with torch.cuda.device(queries.device):
-        rc = lib.l2_topk_float(
-            q.data_ptr(), r.data_ptr(), r_norms.data_ptr(), part_v.data_ptr(),
-            part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(), b, n, dp, k,
-            kp, bn, int(refs.dtype == torch.bfloat16), splits, rows,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "l2_topk_float")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.l2_topk_float_prep(
+            q.data_ptr(), qn.data_ptr(), ptr(q_hi), ptr(q_lo), b, dp,
+            int(bf16), stream), "l2_topk_float")
+        s0 = 0
+        for row0, rows, n_splits, per in plan:
+            rb = r[row0:row0 + rows]
+            if not bf16:
+                _build.check(lib.l2_topk_float_split(
+                    rb.data_ptr(), r_hi.data_ptr(), r_lo.data_ptr(),
+                    rows * dp, stream), "l2_topk_float")
+                rb = r_hi
+            _build.check(lib.l2_topk_float_pass1(
+                ptr(q if bf16 else q_hi), ptr(q_lo), qn.data_ptr(),
+                rb.data_ptr(), ptr(r_lo), r_norms[row0:].data_ptr(),
+                part_v[s0].data_ptr(),
+                part_i[s0].data_ptr(), b, rows, dp, k, kp, int(bf16),
+                n_splits, per, stages, row0, stream), "l2_topk_float")
+            s0 += n_splits
+        if splits != 1:
+            _build.check(lib.l2_topk_float_merge(
+                part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+                ids.data_ptr(), b, k, splits, stream), "l2_topk_float")
     l2_topk_float.launches += 1
     return vals, ids
 

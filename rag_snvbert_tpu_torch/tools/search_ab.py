@@ -2,30 +2,37 @@
 
 Each ``--variant LABEL=DIR`` names a copy of this package's directory (for
 example ``rag_snvbert_tpu_torch/`` of an unpacked ``git archive`` of
-another commit, or a copy with edited tile sizes): its ``csrc/l2_topk.cu``
-and ``csrc/l2_topk_rf.cu`` are built with its own ``ops/_build.py`` and run
-through its own wrappers ``ops.l2_topk.l2_topk`` and
-``ops.l2_topk_rf.l2_topk_rf``, whose Python signatures do not change from
-commit to commit (their C interfaces and host-side plans may).  The package
-that holds this file is always the variant ``this``.
+another commit, or a copy with edited tile sizes): its
+``csrc/l2_topk.cu``, ``csrc/l2_topk_rf.cu`` and ``csrc/l2_topk_float.cu``
+are built with its own ``ops/_build.py`` and run through its own wrappers
+``ops.l2_topk.l2_topk``, ``ops.l2_topk_rf.l2_topk_rf`` and
+``ops.l2_topk_float.l2_topk_float``, whose Python signatures do not change
+from commit to commit (their C interfaces and host-side plans may).  The
+package that holds this file is always the variant ``this``.
 
 For each kernel the script prints every variant's ptxas report, checks the
 variant against the plain version (``l2_topk``: distances within 2e-4 of
-the expansion's scale; ``l2_topk_rf``: ids and distances exactly equal;
-reruns bit-identical), times the variants in turns (A, B, B, A for two)
-with the library yardstick before and after them (``matmul``+``topk``;
-``_int_mm``+``topk``), splits one call of each variant by kernel with
-``torch.profiler``, and times the host side of one wrapper call.  Shapes:
+the expansion's scale; ``l2_topk_rf`` and ``l2_topk_float`` on binary
+genotypes: ids and distances exactly equal; ``l2_topk_float`` on Gaussian
+float32: tie-aware within 1e-5 of the scale, and its float64 error beside
+the plain float32 product's; reruns bit-identical), times the variants in
+turns (A, B, B, A for two) with the library yardstick before and after them
+(``matmul``+``topk``, in the refs' dtype with TF32 off; ``_int_mm``+``topk``),
+splits one call of each variant by kernel with ``torch.profiler``, and times
+the host side of one wrapper call.  Shapes:
 ``l2_topk`` q [64, 395520] x refs [2048, 395520] bf16, k = 1; ``l2_topk_rf``
 the token search q [64, 1030] x refs [2048, 1040] and the genotype index
-q [1024, 2040] x 664,648 rows at pack 8 and pack 1, k = 10.  One CUDA
+q [1024, 2040] x 664,648 rows at pack 8 and pack 1, k = 10; ``l2_topk_float``
+the same index shape as binary genotypes in bf16 and float32 and as Gaussian
+float32 (``chip_smoke.py``'s ``phase_l2_float`` inputs).  One CUDA
 device; run from the repository root:
 
     mkdir -p build/parent && git archive HEAD~1 | tar -x -C build/parent
     python -m rag_snvbert_tpu_torch.tools.search_ab \\
         --variant parent=build/parent/rag_snvbert_tpu_torch
 
-``--only l2_topk`` or ``--only l2_topk_rf`` runs one kernel's part;
+``--only l2_topk``, ``--only l2_topk_rf`` or ``--only l2_topk_float`` runs
+one kernel's part;
 ``--rows N`` cuts the index to N rows (a quick check); ``--no-check`` goes
 on timing a variant that disagrees with the plain version (an experiment
 that leaves a part of a kernel out to see what it costs).  The last line
@@ -48,6 +55,7 @@ import torch
 
 from ..ops import l2_ref
 from ..ops.l2_topk import l2_topk_plain
+from ..ops.l2_topk_float import l2_topk_float_plain
 from ..ops.l2_topk_rf import l2_topk_rf_plain
 from ..ops.planar import pack_planar, planar_sq_norms
 from .attention_ab import kernel_split, time_ms
@@ -59,7 +67,9 @@ RF_INDEX = (1024, 331 * 2008, 2040)
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
+TF32_FLOP_PER_S = 495e12
 L2_REL_TOL = 2e-4                      # as chip_smoke.py
+FLOAT_REL_TOL = 1e-5                   # as chip_smoke.py
 MUST_AGREE = True                      # --no-check clears it
 
 
@@ -83,7 +93,7 @@ def load_variant(label: str, pkg_dir: Path):
         sys.modules[name] = module
         spec.loader.exec_module(module)
     return {part: importlib.import_module(f"{name}.ops.{part}")
-            for part in ("_build", "l2_topk", "l2_topk_rf")}
+            for part in ("_build", "l2_topk", "l2_topk_rf", "l2_topk_float")}
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -250,11 +260,114 @@ def run_rf(mods, labels, iters, gen, rows) -> dict:
     return out
 
 
+def float_check(what, q, refs, norms, got, want, exact) -> bool:
+    """An ``l2_topk_float`` answer against the plain version's: equal on
+    genotypes; else the same +inf slots, values within FLOAT_REL_TOL of
+    |q|^2 + |r|^2, and where ids differ the float64 distances of both rows
+    that close.  Prints the float64 error of both on non-exact data."""
+    (v, i), (pv, pi) = got, want
+    if exact:
+        return torch.equal(i, pi) and torch.equal(v, pv)
+    qd = q.to(refs.dtype).double()
+    qn = (qd ** 2).sum(1)
+    scale = qn[:, None] + norms.double()[pi.clamp_min(0).long()]
+    rel = ((v.double() - pv.double()).abs() / scale).max().item()
+    diff = i != pi
+    tie = 0.0
+    if diff.any():
+        rows = qd[diff.nonzero()[:, 0]]
+        d_k = ((rows - refs[i[diff].long()].double()) ** 2).sum(-1)
+        d_p = ((rows - refs[pi[diff].long()].double()) ** 2).sum(-1)
+        tie = ((d_k - d_p).abs() / scale[diff]).max().item()
+
+    def f64_error(vals, ids):
+        d64 = (qn[:, None] - 2.0 * torch.einsum(
+            "bd,bkd->bk", qd, refs[ids.long()].double())
+            + norms.double()[ids.long()])
+        return ((vals.double() - d64).abs()
+                / (qn[:, None] + norms.double()[ids.long()])).max().item()
+
+    e_k, e_p = f64_error(v, i), f64_error(pv, pi)
+    print(f"{what}: max |err|/(|q|^2+|r|^2) {rel:.3e}, ties {tie:.3e} (tol "
+          f"{FLOAT_REL_TOL:.0e}); vs float64 kernel {e_k:.3e}, plain float32 "
+          f"matmul {e_p:.3e}")
+    return rel <= FLOAT_REL_TOL and tie <= FLOAT_REL_TOL and e_k <= e_p
+
+
+def run_float_case(what, mods, labels, q, refs, norms, exact, iters) -> dict:
+    k = 10
+    want = l2_topk_float_plain(q, refs, norms, k)
+    for lab in labels:
+        fn = mods[lab]["l2_topk_float"].l2_topk_float
+        got = fn(q, refs, norms, k)
+        again = fn(q, refs, norms, k)
+        rerun = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        ok = float_check(f"{what} {lab}", q, refs, norms, got, want, exact)
+        print(f"{what} {lab}: agrees with plain {ok}, rerun bit-identical "
+              f"{rerun}")
+        if not (ok and rerun):
+            disagrees(f"{what} {lab}")
+        del got, again
+    del want
+    b, d = q.shape
+    n = refs.shape[0]
+    qc = q.to(refs.dtype)
+    qn = (qc.float() ** 2).sum(1)
+
+    def library():
+        dots = torch.matmul(qc, refs.T).float()
+        return torch.topk(qn[:, None] - 2.0 * dots + norms[None], k, dim=1,
+                          largest=False)
+
+    def make(lab):
+        fn = mods[lab]["l2_topk_float"].l2_topk_float
+        return lambda: fn(q, refs, norms, k)
+
+    ms, lib = in_turns(labels, make, library, iters)
+    size = refs.element_size()
+    ops = 2 * b * n * d
+    rate = BF16_FLOP_PER_S
+    if refs.dtype == torch.float32:      # three TF32 products a pair
+        ops, rate = 3 * ops, TF32_FLOP_PER_S
+    bound_ms = max((size * (b * d + n * d) + 4 * n + 8 * b * k)
+                   / HBM_BYTES_PER_S, ops / rate) * 1e3
+    splits = {lab: kernel_split(make(lab)) for lab in labels}
+    hosts = {lab: host_us(make(lab), 20) for lab in labels}
+    return report(what, labels, ms, lib, "matmul+topk", bound_ms, splits,
+                  hosts)
+
+
+def run_float(mods, labels, iters, gen, rows) -> dict:
+    b, n, d = RF_INDEX
+    n = rows or n
+    out = {}
+    bits = torch.randint(0, 2, (n, d), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    qb = torch.randint(0, 2, (b, d), generator=gen, device="cuda").float()
+    norms = (bits.float() ** 2).sum(1)
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        refs = bits.to(dtype)
+        out[f"genotypes_{name}"] = run_float_case(
+            f"l2_topk_float index [{b}, {d}] x {n} {name} genotypes k=10",
+            mods, labels, qb, refs, norms, True, iters)
+        del refs
+        torch.cuda.empty_cache()
+    del bits
+    refs = torch.randn(n, d, generator=gen, device="cuda")
+    q = torch.randn(b, d, generator=gen, device="cuda")
+    norms = (refs ** 2).sum(1)
+    out["gaussian_f32"] = run_float_case(
+        f"l2_topk_float index [{b}, {d}] x {n} f32 gaussian k=10", mods,
+        labels, q, refs, norms, False, iters)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
                     metavar="LABEL=DIR")
-    ap.add_argument("--only", choices=("l2_topk", "l2_topk_rf"))
+    ap.add_argument("--only", choices=("l2_topk", "l2_topk_rf",
+                                       "l2_topk_float"))
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--rows", type=int, default=0,
                     help="rows of the genotype index (default: all 664,648)")
@@ -273,7 +386,8 @@ def main(argv=None) -> None:
     variants["this"] = Path(__file__).resolve().parent.parent
     mods = {lab: load_variant(lab, d) for lab, d in variants.items()}
     labels = list(variants)
-    names = [args.only] if args.only else ["l2_topk", "l2_topk_rf"]
+    names = ([args.only] if args.only
+             else ["l2_topk", "l2_topk_rf", "l2_topk_float"])
     for lab in labels:
         t = time.perf_counter()
         mods[lab]["_build"].build(names)
@@ -290,6 +404,10 @@ def main(argv=None) -> None:
     if "l2_topk_rf" in names:
         summary["l2_topk_rf"] = run_rf(mods, labels, args.iters, gen,
                                        args.rows)
+        torch.cuda.empty_cache()
+    if "l2_topk_float" in names:
+        summary["l2_topk_float"] = run_float(mods, labels, args.iters, gen,
+                                             args.rows)
     print(card)
     print(json.dumps(summary))
 

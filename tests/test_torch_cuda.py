@@ -648,16 +648,20 @@ def test_token_ids_beyond_int8_raise_on_the_card(cuda):
 
 # ---- l2_topk_float and the offline index on the card ----
 
-# Pass 1's tiles: 128 queries, 128 (k <= 32) or 64 ref rows, chunks of 32
-# float32 / 64 bf16 columns; B and N at, below and above a tile, d below a
-# 16-byte row (1, 37: the wrapper pads), at one (8), and several chunks
-# (2040, 4096); k in both block configurations; N < k.
+# Pass 1's tiles: 128 queries (64 a consumer), 128 ref rows, stages of 128
+# bf16 / 32 float32 columns; B and N at, below and above a tile (N = 0
+# too), d below a 16-byte row (1, 37: the wrapper pads), at one (8), and
+# several stages (2040, 4096); k where the lists' stride and the ring's
+# depth change (16 | 17..32 | 33..64 | 65..128); N < k.
 FLOAT_CASES = [  # (b, n, d, k)
     (1, 1, 1, 1), (63, 191, 8, 10), (64, 192, 37, 128), (65, 49153, 8, 1),
     (1025, 200, 37, 128), (1, 200000, 2040, 10), (65, 191, 4096, 33),
     (64, 1, 2040, 10), (63, 49153, 37, 128), (1025, 20000, 8, 10),
     (3, 50001, 37, 128), (1, 192, 4096, 1), (65, 200000, 1, 10),
     (130, 20000, 4096, 32), (5, 3, 16, 128),
+    (4, 0, 40, 10), (4, 100, 40, 10), (1, 3000, 37, 1), (129, 3000, 8, 32),
+    (129, 1000, 4096, 33), (1, 20000, 4096, 64), (33, 5000, 37, 65),
+    (129, 300, 8, 128), (2, 127, 8, 128),
 ]
 # float32 sums of up to 4096 products in another order than the plain
 # version's matmul: values to 1e-5 of |q|^2 + |r|^2, and where ids differ
@@ -716,7 +720,10 @@ def test_l2_topk_float_kernel_matches_plain(cuda, b, n, d, k, dtype):
     assert ops.launch_counts()["l2_topk_float"] == before + 1
     assert got[0].shape == got[1].shape == (b, k)
     assert got[1].dtype == torch.int32
-    _float_tie_aware(q, r, rn, got, l2_topk_float_plain(q, r, rn, k))
+    if n == 0:
+        assert torch.isinf(got[0]).all() and (got[1] == -1).all()
+    else:
+        _float_tie_aware(q, r, rn, got, l2_topk_float_plain(q, r, rn, k))
     again = l2_topk_float(q, r, rn, k)
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
@@ -773,6 +780,117 @@ def test_l2_topk_float_smem_plan_is_the_kernels(cuda, k):
     lib = _build.load("l2_topk_float", lf._SIGNATURES)
     cfg = lf.block_config(k)
     assert lib.l2_topk_float_smem(*cfg) == lf.smem_bytes(*cfg)
+
+
+def _float_split_rows(b, n):
+    import importlib
+
+    lf = importlib.import_module("rag_snvbert_tpu_torch.ops.l2_topk_float")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return lf.split_plan(b, n, sms)[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_l2_topk_float_inf_rows_on_both_sides_of_a_split(cuda, dtype):
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import (
+        l2_topk_float, l2_topk_float_plain)
+
+    b, n, d, k = 200, 50001, 40, 33     # N off the tile, several splits
+    q, r, rn = _float_case(b, n, d, dtype, 22, cuda)
+    rows = _float_split_rows(b, n)
+    assert rows < n
+    rn[[rows - 2, rows - 1, rows, rows + 1, n - 1]] = float("inf")
+    # a list left short by its finite rows takes +inf rows in id order
+    few = rn.clone()
+    few[3:] = float("inf")
+    for norms in (rn, few):
+        got = l2_topk_float(q, r, norms, k)
+        _float_tie_aware(q, r, norms, got,
+                         l2_topk_float_plain(q, r, norms, k))
+    for row in got[1].tolist():
+        assert sorted(row[:3]) == [0, 1, 2] and row[3:] == list(range(3, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_l2_topk_float_takes_a_base_off_16_bytes(cuda, dtype):
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import (
+        l2_topk_float, l2_topk_float_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    n, d = 3000, 40
+    flat = torch.randn(n * d + 1, generator=gen, device=cuda).to(dtype)
+    r = flat[1:].view(n, d)                 # contiguous, base 2-4 bytes off
+    assert r.data_ptr() % 16 != 0
+    q = torch.randn(17, d, generator=gen, device=cuda)
+    rn = l2_ref.squared_norms(r)
+    got = l2_topk_float(q, r, rn, 10)
+    _float_tie_aware(q, r, rn, got, l2_topk_float_plain(q, r, rn, 10))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_l2_topk_float_equal_rows_across_splits_go_to_the_lower_id(cuda,
+                                                                    dtype):
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import l2_topk_float
+
+    b, n, d = 10, 60000, 40
+    q, r, _ = _float_case(b, n, d, dtype, 24, cuda)
+    rows = _float_split_rows(b, n)
+    assert 2 * rows + b < n
+    r[rows:rows + b] = r[:b]
+    r[2 * rows:2 * rows + b] = r[:b]
+    rn = l2_ref.squared_norms(r)
+    _, ids = l2_topk_float(r[:b].float(), r, rn, 3)
+    want = torch.stack([torch.arange(b), torch.arange(rows, rows + b),
+                        torch.arange(2 * rows, 2 * rows + b)], 1)
+    assert torch.equal(ids.cpu().long(), want)
+
+
+def test_l2_topk_float_f32_batches_give_the_one_launch_answer(cuda,
+                                                              monkeypatch):
+    """float32 refs taken in batches of rows (the TF32 lo parts' workspace
+    capped) give exactly the answer of one batch: the same products per
+    pair, lists merged in id order."""
+    import importlib
+
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import (
+        l2_topk_float, l2_topk_float_plain)
+
+    lf = importlib.import_module("rag_snvbert_tpu_torch.ops.l2_topk_float")
+    q, r, rn = _float_case(70, 3000, 40, torch.float32, 26, cuda)
+    r[2900:2910] = r[:10]                  # ties across batches
+    rn = l2_ref.squared_norms(r)
+    rn[[5, 1500]] = float("inf")
+    whole = l2_topk_float(q, r, rn, 33)
+    monkeypatch.setattr(lf, "_SPLIT_BYTES", 384 * 40 * 8)
+    assert len(lf.batch_plan(70, 3000, 40, False, 132)) == 8
+    parts = l2_topk_float(q, r, rn, 33)
+    assert torch.equal(parts[0], whole[0]) and torch.equal(parts[1], whole[1])
+    _float_tie_aware(q, r, rn, parts, l2_topk_float_plain(q, r, rn, 33))
+
+
+def test_l2_topk_float_f32_error_is_the_plain_products_or_less(cuda):
+    """Precision.HIGHEST: the kernel's distances (three TF32 products a
+    pair, IEEE sums of fresh accumulators, formed in double) are no
+    further from float64 than the plain float32 matmul's."""
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import (
+        l2_topk_float, l2_topk_float_plain)
+
+    for d in (37, 2040):
+        q, r, rn = _float_case(64, 20000, d, torch.float32, 25, cuda)
+        rn = l2_ref.squared_norms(r)
+        errs = []
+        for v, i in (l2_topk_float(q, r, rn, 10),
+                     l2_topk_float_plain(q, r, rn, 10)):
+            qd = q.double()
+            qn = (qd ** 2).sum(1)[:, None]
+            rows = r[i.long()].double()
+            rnd = rn.double()[i.long()]
+            d64 = qn - 2.0 * (qd[:, None, :] * rows).sum(-1) + rnd
+            errs.append(((v.double() - d64).abs() / (qn + rnd)).max().item())
+        assert errs[0] <= errs[1], (d, errs)
 
 
 def _index_routes():

@@ -134,26 +134,64 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(case):
         l2_topk_float(*_bad(case))
 
 
-@pytest.mark.parametrize("k", [1, 10, 32, 33, 64, 100, 128])
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 32, 33, 64, 65, 96, 97, 100,
+                               128])
 def test_block_config_fits_shared_memory(k):
-    bn, stages, kp = lf.block_config(k)
-    assert kp >= k and kp % 32 == 0
-    assert (bn, stages) == ((128, 3) if k <= 32 else (64, 2))
-    assert lf.smem_bytes(bn, stages, kp) <= 232448
+    """Lists of 16 entries for k <= 16, else k rounded up to 32; the
+    deepest ring of 64 KB stages (four 128-row panels: bf16 queries and
+    refs over two chunks of d, float32 their TF32 hi and lo parts over one)
+    that fits 232,448 bytes with them, one stage at least."""
+    kp, stages = lf.block_config(k)
+    assert kp >= k and (kp == 16 or kp % 32 == 0)
+    assert kp == (16 if k <= 16 else -(-k // 32) * 32)
+    assert 1 <= stages <= 4
+    assert lf.smem_bytes(kp, stages) <= 232448
+    assert stages == 4 or lf.smem_bytes(kp, stages + 1) > 232448
+    # the ring shrinks as k grows; small k (the index's 10) is the deepest
+    assert stages == {16: 3, 32: 3, 64: 2, 96: 2, 128: 1}[kp]
 
 
 @pytest.mark.parametrize("b,n", [(1024, 664648), (1025, 200), (3, 50001),
                                  (1, 1), (65, 49153), (20000, 1000),
                                  (5, 0)])
 def test_split_plan_covers_the_rows_in_one_wave(b, n):
-    for bn in (64, 128):
-        splits, rows = lf.split_plan(b, n, 132, bn)
-        assert rows % bn == 0 and splits * rows >= n
-        assert splits == 1 or (splits - 1) * rows < n
-        q_tiles = -(-b // 128)
-        assert splits == 1 or q_tiles * splits <= 132
+    """Splits of whole 128-row tiles that cover every row once, in id
+    order, and a grid of at most one block an SM (one split when the query
+    tiles alone fill the card)."""
+    splits, rows = lf.split_plan(b, n, 132)
+    assert rows % 128 == 0 and rows > 0 and splits >= 1
+    assert splits * rows >= n and (splits - 1) * rows < max(n, 1)
+    covered = [range(s * rows, min((s + 1) * rows, n)) for s in range(splits)]
+    assert [i for r in covered for i in r] == list(range(n))
+    q_tiles = -(-b // 128)
+    assert splits == 1 or q_tiles * splits <= 132
+    if q_tiles * 2 <= 132 and n > 128 * 132:
+        assert q_tiles * splits > 66       # at least half a wave
 
 
-def test_padded_width_gives_16_byte_rows():
-    assert [lf.padded_width(d) for d in (1, 8, 37, 2040, 2048)] == \
-        [8, 8, 40, 2040, 2048]
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,n,d", [(1024, 664648, 2040), (3, 50001, 40),
+                                   (1, 1, 8), (129, 1 << 20, 4096),
+                                   (5, 0, 8)])
+def test_batch_plan_covers_the_rows_once_in_id_order(b, n, d, bf16):
+    """bf16 in one batch; float32 in batches whose TF32 parts fit the
+    workspace cap; each batch split as ``split_plan`` splits it."""
+    plan = lf.batch_plan(b, n, d, bf16, 132)
+    assert [r0 for r0, *_ in plan] == \
+        [sum(p[1] for p in plan[:i]) for i in range(len(plan))]
+    assert sum(p[1] for p in plan) == n
+    for _, rows, splits, per in plan:
+        assert (splits, per) == lf.split_plan(b, rows, 132)
+        assert bf16 or rows * d * 8 <= max(lf._SPLIT_BYTES, 128 * d * 8)
+    assert len(plan) == (0 if n == 0 else 1 if bf16
+                         else -(-n // plan[0][1]))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_padded_width_gives_16_byte_rows(dtype):
+    """d rounded up to 8 columns: a row stride that is a multiple of 16
+    bytes in either dtype, what a TMA tensor map needs."""
+    size = DT[dtype][1].itemsize
+    widths = [lf.padded_width(d) for d in (1, 8, 37, 2040, 2048)]
+    assert widths == [8, 8, 40, 2040, 2048]
+    assert all(w * size % 16 == 0 for w in widths)
