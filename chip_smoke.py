@@ -9,9 +9,13 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``rag_snvbert_tpu_torch/csrc`` (one nvcc
 per source, started together) and holds each kernel against its plain
-PyTorch version at the main paths' shapes.  Then it drives five paths with
-seeded random weights or data, each with the launch counts set to 0 just
-before it and read just after:
+PyTorch version at the main paths' shapes.  Then it drives seven paths
+with seeded random weights or data, each with the launch counts set to 0
+just before it and read just after:
+  - the int8 probe tools (``python -m rag_snvbert_tpu_torch.tools.probe_mxu``,
+    ``probe_mxu2``, ``probe_mxu3``): every case at the genotype index shape
+    (1024 x 664,648 x 2040, and 2048), each checked against the plain
+    version and by its 64-bit sum of every product, beside ``_int_mm``;
   - V18 serving and training at the full ``tpu_default`` width (384d, 12
     layers, 3 heads of 128, L = 1030, a 2048-row window context): two
     imputation requests through ``ImputationService`` (batch 32), and one
@@ -25,6 +29,9 @@ before it and read just after:
     columns against 664,648 rows, k = 10): packed (pack 8), int8, bf16 and
     float32 ``FlatL2Index`` searches and masked searches, save/load round
     trips, and a ``HammingIndex`` search;
+  - ``tpu_default`` with ``int8_matmuls=True`` (every encoder projection an
+    ``Int8Dense``): two requests and micro-steps in "fwd_bwd" and "fwd"
+    beside the bf16 model with the same weights;
 and checks the answers and the launch counts of each path.  V18 serving
 also writes window 0's index and serves that window from it.  It prints
 one JSON line of per-kernel numbers, the card's name and power limit, and
@@ -35,6 +42,7 @@ the package.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -118,6 +126,20 @@ FLOAT_EDGE = (3, 50001, 37, 128)
 # every distance an exact float32 integer: equal ids and values.
 FLOAT_REL_TOL = 1e-5
 INDEX_PREFIX = 131072      # rows of the indexes saved and loaded back
+# The int8 probe (csrc/int8_probe.cu): every built configuration at ragged
+# shapes (B, N, d off every tile; d = 2040 rows as two row classes, d = 70
+# as eight) against its plain version, exactly, before the probe tools run
+# their cases at the index shape.
+PROBE_EDGE = ((300, 50004, 2040), (20, 1000, 70))
+# int8_matmuls at tpu_default (phase_int8).  Imputed probabilities of the
+# int8 model against the bf16 model with the same weights, over a request's
+# imputed genotypes: int8 products round each activation to 1/127 of its
+# row's scale, and twelve layers carry that on (first run on an H100: mean
+# |dp| 1.64e-3, max 1.02e-2).  The bands are three and five times that:
+# random weights give flat probabilities, trained ones may spread more.
+INT8_PROB_MEAN_TOL = 5e-3
+INT8_PROB_MAX_TOL = 5e-2
+INT8_TRAIN_DIR = "runs/chip_smoke_int8_train"
 
 
 def fail(msg: str) -> None:
@@ -741,6 +763,100 @@ def phase_index(gen) -> dict[str, int]:
     return counts
 
 
+def _probe_edges(gen) -> float:
+    """Every configuration of csrc/int8_probe.cu at the ragged shapes of
+    PROBE_EDGE against the plain version: output and 64-bit sum exactly
+    equal.  Returns the largest absolute difference (0)."""
+    from rag_snvbert_tpu_torch.ops import int8_probe as probe
+
+    worst = 0
+    for b, n, d in PROBE_EDGE:
+        q = torch.randint(-128, 128, (b, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        r = torch.randint(-128, 128, (n, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        rt = r.t().contiguous()
+        for mode, tiles in probe.TILES.items():
+            for tile in tiles:
+                for order in ("rfirst", "qfirst") if mode == "direct" \
+                        else ("rfirst",):
+                    kw = {"trans": mode == "trans", "int4": mode == "int4",
+                          "running": mode != "direct"}
+                    src = rt if kw["trans"] else r
+                    out, total = probe.int8_probe(
+                        q, src, 8, 128, tile=tile, order=order,
+                        return_checksum=True, **kw)
+                    want, want_total = probe.int8_probe_plain(
+                        q, src, 8, 128, return_checksum=True, **kw)
+                    err = (out.long() - want.long()).abs().max().item()
+                    worst = max(worst, err)
+                    check(err == 0 and int(total) == int(want_total),
+                          f"int8_probe {mode} {tile} {order} at {(b, n, d)}:"
+                          f" max_abs_err {err}, sum {int(total)} vs "
+                          f"{int(want_total)}")
+    print(f"int8_probe: {sum(len(t) for t in probe.TILES.values()) + 8} "
+          f"configurations x orders at {PROBE_EDGE}: outputs and 64-bit sums "
+          f"equal to the plain version")
+    return float(worst)
+
+
+def phase_probe_mxu(gen) -> tuple[dict, dict[str, int]]:
+    """The int8 probe's path: the three probe tools (python -m
+    rag_snvbert_tpu_torch.tools.probe_mxu{,2,3}) run every case at the
+    index shape, each checked against the plain version and by its 64-bit
+    sum inside the tool."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.tools import probe_mxu, probe_mxu2, probe_mxu3
+
+    edge_err = _probe_edges(gen)
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    rows = {}
+    for name, tool in (("probe_mxu", probe_mxu), ("probe_mxu2", probe_mxu2),
+                       ("probe_mxu3", probe_mxu3)):
+        t = time.perf_counter()
+        rows[name] = tool.run()
+        torch.cuda.empty_cache()
+        print(f"{name}: {len(rows[name])} cases, "
+              f"{sum(r.get('launches', 0) for r in rows[name])} int8_probe "
+              f"launches, {time.perf_counter() - t:.1f} s")
+    counts = ops.launch_counts(tools=True)
+    cases = [r for rs in rows.values() for r in rs if "launches" in r]
+    want = {**{k: 0 for k in counts}, "int8_probe": sum(r["launches"]
+                                                         for r in cases)}
+    print(f"probe launches {counts} (expected {want})")
+    check(counts == want and all(r["launches"] > 0 for r in cases),
+          "the probe tools did not go through int8_probe")
+    main = next(r for r in rows["probe_mxu"]
+                if r["variant"] == "pallas_mm_256x512x2048")
+    lib = next(r for r in rows["probe_mxu"] if r["variant"] == "xla_int8")
+    from rag_snvbert_tpu_torch.tools.probe_mxu import B, D, N, bound_ms
+
+    b_ms = bound_ms(B, N, D)
+    print(f"int8_probe index shape [{B}, {D}] x [{N}, {D}]: kernel_ms "
+          f"{main['ms']} ({main['cta_tile']}, kd {main['kd']}, rfirst) "
+          f"plain_ms {main['plain_ms']} library_ms {lib['ms']} (_int_mm) "
+          f"bound_ms {b_ms:.4f} (operations): {main['TOPs']} TOP/s, "
+          f"{b_ms / main['ms']:.1%} of the bound, "
+          f"{main['ms'] / lib['ms']:.3f}x the library call")
+    keep = ("variant", "ms", "TOPs", "pct_of_bound", "cta_tile", "kd",
+            "order", "plain_ms", "pack_ms", "note")
+    entry = {"name": "int8_probe", "route": "cuda",
+             "source": "rag_snvbert_tpu_torch/csrc/int8_probe.cu",
+             "replaces": "tools/probe_mxu.py:34",
+             "also_replaces": ["tools/probe_mxu2.py:33",
+                               "tools/probe_mxu3.py:38"],
+             "max_abs_err": max([edge_err] + [float(r["max_abs_err"])
+                                               for r in cases
+                                               if "max_abs_err" in r]),
+             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": b_ms, "bound_by": "operations",
+             "library_ms": lib["ms"],
+             "by_shape": [{k: r[k] for k in keep if k in r}
+                          for rs in rows.values() for r in rs]}
+    return entry, counts
+
+
 def _drop(vcf, keep):
     return dataclasses.replace(vcf, gt=vcf.gt[keep], pos=vcf.pos[keep],
                                chrom=vcf.chrom[keep], ref=vcf.ref[keep],
@@ -874,6 +990,222 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
           "a request served from persisted indexes differs")
     if profile:
         profile_request(svc, targets[1][1])
+    return counts
+
+
+def _int8_layer_check() -> None:
+    """One Int8Dense of each shape the encoder has at tpu_default (an
+    attention projection 384 -> 384, the FFN's w_1 384 -> 1536 and w_2 1536
+    -> 384) on [2 x 32 x 1030] rows of bf16: forward, dx and dw of the
+    "fwd_bwd" backward on the card bit-identical to the same call on the
+    CPU (the integer products are exact and the float steps are the same
+    IEEE operations); the bias gradient, a bf16 sum over the rows in
+    another order, to one bf16 rounding."""
+    from rag_snvbert_tpu_torch.ops.quant import Int8Dense
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = 2 * 32 * 1030
+    for name, (k, n) in (("attention projection", (384, 384)),
+                         ("w_1", (384, 1536)), ("w_2", (1536, 384))):
+        layer = Int8Dense(k, n, torch.bfloat16)
+        with torch.no_grad():
+            layer.weight.copy_(torch.randn(n, k, generator=gen,
+                                           device="cuda").cpu() / k ** 0.5)
+            layer.bias.copy_(torch.randn(n, generator=gen,
+                                         device="cuda").cpu() * 0.1)
+        x = torch.randn(rows, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        g = torch.randn(rows, n, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            lay = copy.deepcopy(layer).to(dev)
+            xd = x.to(dev).detach().clone().requires_grad_()
+            t = time.perf_counter()
+            y = lay(xd)
+            y.backward(g.to(dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            got[dev] = ([y.detach(), xd.grad, lay.weight.grad,
+                         lay.bias.grad], time.perf_counter() - t)
+        (y, dx, dw, db), (y0, dx0, dw0, db0) = got["cuda"][0], got["cpu"][0]
+        same = [torch.equal(a.cpu(), b) for a, b in ((y, y0), (dx, dx0),
+                                                     (dw, dw0))]
+        # the forward's device time beside bf16 F.linear and _int_mm alone
+        lay = layer.cuda()
+        with torch.no_grad():
+            xq = torch.randint(-127, 128, (rows, k), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            wq = torch.randint(-127, 128, (n, k), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            t_int8 = time_ms(lambda: lay(x), 20)
+            t_bf16 = time_ms(lambda: torch.nn.functional.linear(
+                x, lay.weight.to(torch.bfloat16),
+                lay.bias.to(torch.bfloat16)), 20)
+            t_mm = time_ms(lambda: torch._int_mm(xq, wq.t()), 20)
+        db_err = (db.cpu().float() - db0.float()).abs().max().item()
+        db_tol = 2 ** -7 * db0.float().abs().max().item()
+        print(f"Int8Dense {name} [{rows}, {k}] @ [{k}, {n}] bf16: forward, "
+              f"dx, dw on the card equal to the CPU {same}, db max_abs_err "
+              f"{db_err:.3e} (tol {db_tol:.3e}); forward {t_int8:.4f} ms "
+              f"(bf16 F.linear {t_bf16:.4f}, _int_mm alone {t_mm:.4f})")
+        check(all(same) and db_err <= db_tol,
+              f"Int8Dense {name}: the card and the CPU differ")
+
+
+def phase_int8(profile: bool = False) -> dict[str, int]:
+    """tpu_default with int8_matmuls=True at full width and depth: two
+    requests through ImputationService (the serving phase's bundle), then
+    micro-steps on a fixed batch in "fwd_bwd" and one in "fwd", each beside
+    the bf16 model with the same weights."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.data.pipeline import WindowDataset
+    from rag_snvbert_tpu_torch.infer.serve import ImputationService
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.ops.quant import Int8Dense
+    from rag_snvbert_tpu_torch.train import step
+    from rag_snvbert_tpu_torch.train.schedule import make_optimizer
+    from rag_snvbert_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    _int8_layer_check()
+    base = PRESETS["tpu_default"]
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, int8_matmuls=True))
+    m = cfg.model
+    per_forward = 6 * m.n_layers      # query, key, value, output, w_1, w_2
+    bundle = make_bundle(n_train_samples=64, n_ref_samples=1004,
+                         n_sites=3 * 1020, n_windows=3, seed=17)
+    models = {"int8": build_model(cfg, bundle.vocab.size, seed=0),
+              "bf16": build_model(base, bundle.vocab.size, seed=0)}
+    models["bf16"].load_state_dict(models["int8"].state_dict())
+    check(sum(isinstance(x, Int8Dense) for x in models["int8"].modules())
+          == per_forward and not any(isinstance(x, Int8Dense) for x in
+                                     models["bf16"].modules()),
+          "the int8 model's projections are not all Int8Dense")
+    n_samp = bundle.train.n_samples
+    keep = np.random.default_rng(1).random(bundle.train.n_variants) >= 0.5
+    target = _drop(bundle.train, keep)
+    counts = {k: 0 for k in ops.launch_counts()}
+    results, rate = {}, {}
+    for kind in ("int8", "bf16"):
+        svc = ImputationService.create(models[kind], bundle.ref, bundle.freq,
+                                       batch_size=32)
+        imp = svc.imputer
+        batches = len(imp.windows) * -(-n_samp // imp.batch_size)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        Int8Dense.calls = 0
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = svc.handle_target(target)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        results[kind] = res
+        n_imp = int(res.imputed_flag.sum()) * n_samp
+        rate[kind] = n_imp / secs[1]
+        print(f"{kind} serving: requests {[round(x, 3) for x in secs]} s, "
+              f"{n_imp} imputed genotypes, warm {rate[kind]:.0f} imputed "
+              f"genotypes/s; Int8Dense calls {Int8Dense.calls}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if kind == "int8":
+            counts = ops.launch_counts()
+            want = {**{k: 0 for k in counts},
+                    "attention": m.n_layers * 2 * batches,
+                    "l2_topk": 2 * batches}
+            check(counts == want and Int8Dense.calls
+                  == per_forward * 2 * batches,
+                  f"int8 serving launches {counts} (expected {want}), "
+                  f"Int8Dense calls {Int8Dense.calls} (expected "
+                  f"{per_forward * 2 * batches})")
+            for p in (res.hap1_prob, res.hap2_prob, res.gt_prob):
+                check(bool(np.isfinite(p).all() and (p >= 0).all()
+                           and (p <= 1).all()),
+                      "int8 probabilities outside [0, 1]")
+            check((res.hap1_prob[keep] == bundle.train.gt[keep, :, 0]).all()
+                  and (res.imputed_flag == ~keep).all(),
+                  "int8 serving: known sites or flags")
+    miss = results["int8"].imputed_flag
+    diffs = [np.abs(getattr(results["int8"], f)[miss]
+                    - getattr(results["bf16"], f)[miss])
+             for f in ("hap1_prob", "hap2_prob", "gt_prob")]
+    mean_d = max(float(d.mean()) for d in diffs)
+    max_d = max(float(d.max()) for d in diffs)
+    print(f"int8 against bf16 serving, same weights: {int(miss.sum())} "
+          f"imputed sites x {n_samp} samples, mean |dp| {mean_d:.3e} (tol "
+          f"{INT8_PROB_MEAN_TOL}), max |dp| {max_d:.3e} (tol "
+          f"{INT8_PROB_MAX_TOL}); genotypes/s int8 {rate['int8']:.0f}, bf16 "
+          f"{rate['bf16']:.0f}")
+    check(mean_d <= INT8_PROB_MEAN_TOL and max_d <= INT8_PROB_MAX_TOL,
+          "int8 serving strays from the bf16 model")
+
+    # Micro-steps on one fixed batch at the preset's peak lr, no warmup:
+    # "fwd_bwd" (int8 forward and gradient products), then one "fwd" step;
+    # the bf16 model from the same weights takes the same steps.
+    ds = WindowDataset(bundle.train, bundle.panel, bundle.freq,
+                       bundle.window.window_info, bundle.vocab,
+                       ref_vcf=bundle.ref, seq_len=m.seq_len)
+    tcfg = TrainerConfig(epochs=1, batch_size=cfg.batch_size,
+                         ref_pad_haps=2048, output_dir=INT8_TRAIN_DIR,
+                         rag_k=cfg.rag_k, seed=0)
+    shutil.rmtree(INT8_TRAIN_DIR, ignore_errors=True)
+    meta = ds.windows[0]
+    for kind in ("int8", "bf16"):
+        trainer = Trainer(models[kind], ds, tcfg)
+        batch = trainer._put_batch(ds.make_batch(
+            meta, np.arange(tcfg.batch_size), 0, 0, packed=True))
+        ctx = trainer._window_ctx(ds, meta, 0, 0)
+        model = trainer.model
+        opt = make_optimizer(model, cfg.max_lr, cfg.max_lr, 1)
+        torch.cuda.reset_peak_memory_stats()
+        if kind == "int8":
+            ops.reset_launches()
+            Int8Dense.calls = 0
+        before = step.eval_step(model, batch, ctx, trainer.step_cfg)["loss"]
+        times, losses = [], []
+        for i in range(6):
+            if kind == "int8" and i == 5:
+                for mod in model.modules():
+                    if isinstance(mod, Int8Dense):
+                        mod.mode = "fwd"
+            gen = step.step_generator(0, 2000 + i, trainer.device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            stats = step.train_step(model, opt, batch, ctx, trainer.step_cfg,
+                                    gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(stats["loss"].item())
+        after = step.eval_step(model, batch, ctx, trainer.step_cfg)["loss"]
+        warm = statistics.median(times[1:5])
+        print(f"{kind} micro-steps (batch {tcfg.batch_size}, L "
+              f"{m.seq_len}, a 2048-row context): "
+              f"{[round(x * 1e3, 1) for x in times]} ms, warm median "
+              f"{warm * 1e3:.1f} ms, {tcfg.batch_size / warm:.1f} training "
+              f"samples/s; train losses {[round(x, 4) for x in losses]}; "
+              f"eval loss of the batch {before.item():.4f} -> "
+              f"{after.item():.4f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if kind == "int8":
+            steps = len(times)
+            train = ops.launch_counts()
+            want = {**{k: 0 for k in train},
+                    "attention": m.n_layers * (steps + 2),
+                    "attention_bwd": m.n_layers * steps,
+                    "l2_topk": steps + 2}
+            check(train == want and Int8Dense.calls
+                  == per_forward * (steps + 2),
+                  f"int8 training launches {train} (expected {want}), "
+                  f"Int8Dense calls {Int8Dense.calls} (expected "
+                  f"{per_forward * (steps + 2)})")
+            check(all(np.isfinite(losses)) and bool(torch.isfinite(after))
+                  and after.item() < before.item(),
+                  "the int8 model's loss did not fall on a fixed batch")
+            counts = {k: counts[k] + train[k] for k in counts}
+        del trainer, opt, model
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -1442,18 +1774,26 @@ def main() -> None:
     t = time.perf_counter()
     kernels.append(phase_l2_float(gen))
     print(f"l2_topk_float phase {time.perf_counter() - t:.1f} s")
-    paths = {}
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    probe_entry, probe_counts = phase_probe_mxu(gen)
+    kernels.append(probe_entry)
+    print(f"probe_mxu phase {time.perf_counter() - t:.1f} s")
+    paths = {"probe_mxu": probe_counts}
     for name, phase in (("serving", phase_serving),
                         ("training", phase_training),
                         ("token_serving", phase_token_serving),
                         ("token_training", phase_token_training),
-                        ("index", lambda _profile: phase_index(gen))):
+                        ("index", lambda _profile: phase_index(gen)),
+                        ("int8", phase_int8)):
         torch.cuda.empty_cache()
         t = time.perf_counter()
         paths[name] = phase(profile)
         print(f"{name} phase {time.perf_counter() - t:.1f} s")
     for kern in kernels:
-        by_path = {p: c[kern["name"]] for p, c in paths.items()}
+        # the model and index paths count the five model kernels; only the
+        # probe tools launch int8_probe
+        by_path = {p: c.get(kern["name"], 0) for p, c in paths.items()}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path
     print(f"total {time.perf_counter() - t_start:.1f} s")

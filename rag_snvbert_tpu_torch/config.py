@@ -160,8 +160,6 @@ def build_model(cfg: RunConfig, vocab_size: int, device=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     m = cfg.model
-    if m.int8_matmuls:
-        raise NotImplementedError("int8_matmuls is not ported yet")
     cls = {"embedding": BERTWithEmbeddingRAG, "token": BERTWithRAG,
            "none": BERT}.get(m.rag_mode)
     if cls is None:
@@ -176,7 +174,7 @@ def build_model(cfg: RunConfig, vocab_size: int, device=None,
                                 else torch.float32),
                    dropout_broadcast=m.dropout_broadcast,
                    fused_qkv=m.fused_qkv,
-                   pos_norm=m.pos_norm)
+                   pos_norm=m.pos_norm, int8_matmuls=m.int8_matmuls)
         model = BERTFoundationModel(
             bert, compat_double_softmax=m.compat_double_softmax)
     model = init_weights(model.to_empty(device="cpu"), seed)

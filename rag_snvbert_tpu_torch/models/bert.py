@@ -34,7 +34,7 @@ class BERT(nn.Module):
                  flash_attention: bool = False,
                  score_dtype: torch.dtype = torch.float32,
                  dropout_broadcast: bool = False, fused_qkv: bool = False,
-                 pos_norm: str = "group"):
+                 pos_norm: str = "group", int8_matmuls: bool | str = False):
         super().__init__()
         self.dims = dims
         self.embedding = BERTEmbedding(vocab_size, dims, dropout, dtype=dtype)
@@ -42,7 +42,8 @@ class BERT(nn.Module):
                                                 dtype=dtype)
         self.encoder = Encoder(n_layers, dims, attn_heads, dropout, pre_ln,
                                dtype, attn_dropout, flash_attention,
-                               score_dtype, dropout_broadcast, fused_qkv)
+                               score_dtype, dropout_broadcast, fused_qkv,
+                               int8_matmuls)
 
     def embed(self, tokens: torch.Tensor, af: torch.Tensor) -> torch.Tensor:
         """Embedding-layer forward: the retrieval encoder."""

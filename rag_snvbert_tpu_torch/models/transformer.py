@@ -7,7 +7,9 @@ kernel (``ops/attention.py``) where the JAX package takes its Pallas kernel
 transformer.py:207-208); otherwise the plain torch math below, the twin of
 the JAX einsum path (:220-233).  The layer stack is an unrolled loop: no
 scan, no remat, and no pad-once residency (:379-399 pads to TPU block
-multiples; the CUDA kernel masks the ragged tail itself).
+multiples; the CUDA kernel masks the ragged tail itself).  ``quant`` (the
+model's ``int8_matmuls``) builds every projection as ``ops.quant``'s
+``Int8Dense`` (:191-192, :249-250).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
-from .layers import Dense, Dropout, LayerNorm
+from .layers import Dropout, LayerNorm
 
 
 class MultiHeadAttention(nn.Module):
@@ -25,8 +27,11 @@ class MultiHeadAttention(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  attn_dropout: float | None = None, flash: bool = False,
                  score_dtype: torch.dtype = torch.float32,
-                 fused_qkv: bool = False):
+                 fused_qkv: bool = False, quant: bool | str = False):
         super().__init__()
+        from ..ops.quant import dense_cls   # ops.quant imports models.layers
+
+        Dense = dense_cls(quant)
         if dims % heads:
             raise ValueError(f"dims {dims} not divisible by heads {heads}")
         self.heads, self.dims, self.dtype = heads, dims, dtype
@@ -78,8 +83,11 @@ class FeedForward(nn.Module):
 
     def __init__(self, dims: int, hidden_dims: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32,
-                 dropout_broadcast: bool = False):
+                 dropout_broadcast: bool = False, quant: bool | str = False):
         super().__init__()
+        from ..ops.quant import dense_cls
+
+        Dense = dense_cls(quant)
         self.w_1 = Dense(dims, hidden_dims, dtype)
         self.LayerNorm_0 = LayerNorm(hidden_dims, dtype)
         self.w_2 = Dense(hidden_dims, dims, dtype)
@@ -100,15 +108,16 @@ class TransformerBlock(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  attn_dropout: float | None = None, flash: bool = False,
                  score_dtype: torch.dtype = torch.float32,
-                 dropout_broadcast: bool = False, fused_qkv: bool = False):
+                 dropout_broadcast: bool = False, fused_qkv: bool = False,
+                 quant: bool | str = False):
         super().__init__()
         self.dtype, self.pre_ln = dtype, pre_ln
         self.drop = Dropout(dropout, dropout_broadcast)
         self.attention = MultiHeadAttention(
             attn_heads, dims, dropout, dtype, attn_dropout, flash,
-            score_dtype, fused_qkv)
+            score_dtype, fused_qkv, quant)
         self.feed_forward = FeedForward(dims, feed_forward_hidden, dropout,
-                                        dtype, dropout_broadcast)
+                                        dtype, dropout_broadcast, quant)
         self.LayerNorm_0 = LayerNorm(dims, dtype)
         self.LayerNorm_1 = LayerNorm(dims, dtype)
 
@@ -131,7 +140,8 @@ class Encoder(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  attn_dropout: float | None = None, flash: bool = False,
                  score_dtype: torch.dtype = torch.float32,
-                 dropout_broadcast: bool = False, fused_qkv: bool = False):
+                 dropout_broadcast: bool = False, fused_qkv: bool = False,
+                 quant: bool | str = False):
         super().__init__()
         self.dtype = dtype
         self.n_layers = n_layers
@@ -139,7 +149,7 @@ class Encoder(nn.Module):
             self.add_module(f"block_{i}", TransformerBlock(
                 dims, attn_heads, 4 * dims, dropout, pre_ln, dtype,
                 attn_dropout, flash, score_dtype, dropout_broadcast,
-                fused_qkv))
+                fused_qkv, quant))
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:

@@ -3,24 +3,30 @@ versions.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``attention.launches``, ``attention_bwd.launches``, ``l2_topk.launches``,
-``l2_topk_rf.launches``, ``l2_topk_float.launches``), so a run can show
-that the main path went through the kernels.
+``l2_topk_rf.launches``, ``l2_topk_float.launches``,
+``int8_probe.launches``), so a run can show that the main path went
+through the kernels.  ``launch_counts()`` reads the model and index paths'
+kernels; ``launch_counts(tools=True)`` adds the int8 probe, which only the
+probe tools (``tools/probe_mxu*.py``) launch.
 """
 
 from .attention import attention, attention_bwd
 from .l2_topk import l2_topk
 from .l2_topk_float import l2_topk_float
+from . import int8_probe as _int8_probe   # ops.int8_probe: the module
 from .l2_topk_rf import l2_topk_rf
 
 WRAPPERS = {"attention": attention, "attention_bwd": attention_bwd,
             "l2_topk": l2_topk, "l2_topk_rf": l2_topk_rf,
             "l2_topk_float": l2_topk_float}
+TOOL_WRAPPERS = {"int8_probe": _int8_probe.int8_probe}
 
 
-def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+def launch_counts(tools: bool = False) -> dict[str, int]:
+    wrappers = {**WRAPPERS, **TOOL_WRAPPERS} if tools else WRAPPERS
+    return {name: fn.launches for name, fn in wrappers.items()}
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
+    for fn in (*WRAPPERS.values(), *TOOL_WRAPPERS.values()):
         fn.launches = 0

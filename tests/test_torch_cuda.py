@@ -966,3 +966,122 @@ def test_hamming_index_on_the_card_matches_the_cpu(cuda):
         a = card.search(qb, 7, streaming=streaming, chunk=1024)
         b = host.search(qb, 7, streaming=streaming, chunk=1024)
         assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1])
+
+
+# ---- the int8 probe (csrc/int8_probe.cu) and Int8Dense ----
+
+def _probe_configs():
+    from rag_snvbert_tpu_torch.ops.int8_probe import TILES
+
+    out = []
+    for mode, tiles in TILES.items():
+        for tile in tiles:
+            orders = ("rfirst", "qfirst") if mode == "direct" else ("rfirst",)
+            out += [(mode, tile, order) for order in orders]
+    return out
+
+
+# (B, N, d): aligned; ragged (d = 70 rows as eight row classes); d = 2040
+# (two row classes, the index shape's width) with N off every tile
+PROBE_SHAPES = [(16, 256, 64), (20, 1000, 70), (300, 50004, 2040)]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("config", _probe_configs(),
+                         ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}x"
+                                       f"{c[1][2]}-{c[2]}")
+def test_int8_probe_matches_plain(cuda, config, shape):
+    from rag_snvbert_tpu_torch.ops.int8_probe import (int8_probe,
+                                                      int8_probe_plain)
+
+    mode, tile, order = config
+    b, n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(b + n + d)
+    q = torch.randint(-128, 128, (b, d), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    r = torch.randint(-128, 128, (n, d), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    kw = {"trans": mode == "trans", "int4": mode == "int4",
+          "running": mode != "direct"}
+    if kw["trans"]:
+        r = r.t().contiguous()
+    before = ops.launch_counts(tools=True)["int8_probe"]
+    out, total = int8_probe(q, r, 8, 128, tile=tile, order=order,
+                            return_checksum=True, **kw)
+    assert ops.launch_counts(tools=True)["int8_probe"] == before + 1
+    want, want_total = int8_probe_plain(q, r, 8, 128, return_checksum=True,
+                                        **kw)
+    assert torch.equal(out, want)
+    assert int(total) == int(want_total)
+
+
+def test_int8_probe_full_shape_and_int4_from_refs_t(cuda):
+    from rag_snvbert_tpu_torch.ops.int8_probe import (int8_probe,
+                                                      int8_probe_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q = torch.randint(0, 2, (1024, 2040), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    r = torch.randint(0, 2, (664648, 2040), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    out, total = int8_probe(q, r, 256, 512, return_checksum=True)
+    want, want_total = int8_probe_plain(q, r, 256, 512, return_checksum=True)
+    assert torch.equal(out, want) and int(total) == int(want_total)
+    del r
+    rt = torch.randint(-8, 8, (2048, 50000), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    q = torch.randint(-8, 8, (300, 2048), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    out, total = int8_probe(q, rt, 64, 1024, trans=True, int4=True,
+                            running=True, return_checksum=True)
+    want, want_total = int8_probe_plain(q, rt, 64, 1024, trans=True,
+                                        int4=True, running=True,
+                                        return_checksum=True)
+    assert torch.equal(out, want) and int(total) == int(want_total)
+
+
+def test_int8_probe_refuses_what_tma_cannot_take(cuda):
+    from rag_snvbert_tpu_torch.ops.int8_probe import int8_probe
+
+    q = torch.zeros(4, 70, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="TMA"):
+        int8_probe(q, torch.zeros(300, 70, dtype=torch.int8, device=cuda),
+                   8, 128)                       # 8 classes, 300 rows
+    with pytest.raises(ValueError, match="not built"):
+        int8_probe(q, torch.zeros(256, 70, dtype=torch.int8, device=cuda),
+                   8, 128, tile=(64, 64, 64))
+
+
+@pytest.mark.parametrize("mode", ["fwd_bwd", "fwd"])
+@pytest.mark.parametrize("shape", [(2, 40, 48, 24), (3, 7, 384, 1536),
+                                   (2, 5, 13, 9)])
+def test_int8_dense_on_the_card_matches_the_cpu(cuda, shape, mode):
+    """Forward bit-identical (exact integer products around the same IEEE
+    steps); the quantized backward's dx and dw too.  The exact ("fwd")
+    backward's products and every bias gradient (a sum over rows) are
+    summed in another order on the card: one bf16 rounding."""
+    import copy
+
+    from rag_snvbert_tpu_torch.ops.quant import Int8Dense
+
+    b, l, k, n = shape
+    gen = torch.Generator().manual_seed(k * n)
+    layer = Int8Dense(k, n, torch.bfloat16, mode=mode)
+    with torch.no_grad():
+        layer.weight.copy_(torch.randn(n, k, generator=gen) / k ** 0.5)
+        layer.bias.copy_(torch.randn(n, generator=gen))
+    x = torch.randn(b, l, k, generator=gen).to(torch.bfloat16)
+    g = torch.randn(b, l, n, generator=gen).to(torch.bfloat16)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        lay = copy.deepcopy(layer).to(dev)
+        xd = x.to(dev).detach().clone().requires_grad_()
+        y = lay(xd)
+        y.backward(g.to(dev))
+        got[dev] = [t.detach().cpu().float() for t in
+                    (y, xd.grad, lay.weight.grad, lay.bias.grad)]
+    for i, (a, c) in enumerate(zip(got["cuda"], got["cpu"])):
+        if i == 0 or (mode == "fwd_bwd" and i in (1, 2)):
+            assert torch.equal(a, c), i
+        else:
+            assert (a - c).abs().max() <= 2 ** -7 * c.abs().max(), i
