@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``rag_snvbert_tpu_torch/csrc`` (one nvcc
 per source, started together) and holds each kernel against its plain
-PyTorch version at the main paths' shapes.  Then it drives seven paths
+PyTorch version at the main paths' shapes.  Then it drives eight paths
 with seeded random weights or data, each with the launch counts set to 0
 just before it and read just after:
   - the int8 probe tools (``python -m rag_snvbert_tpu_torch.tools.probe_mxu``,
@@ -32,6 +32,13 @@ just before it and read just after:
   - ``tpu_default`` with ``int8_matmuls=True`` (every encoder projection an
     ``Int8Dense``): two requests and micro-steps in "fwd_bwd" and "fwd"
     beside the bf16 model with the same weights;
+  - the command line at ``tpu_default`` over VCF files under
+    ``runs/chip_smoke_cli/`` (gitignored): ``prepare-data``, one epoch of
+    ``train`` (batch 24 x accumulation 2), ``infer`` of 64 half-missing
+    targets, ``emit-vcf``, ``serve`` over JSON lines in a subprocess (two
+    requests), and the HTTP front end over ``BatchingImputationService``
+    (four concurrent requests, three of them merged, then the four one at
+    a time); the imputed VCFs are read back;
 and checks the answers and the launch counts of each path.  V18 serving
 also writes window 0's index and serves that window from it.  It prints
 one JSON line of per-kernel numbers, the card's name and power limit, and
@@ -140,6 +147,12 @@ PROBE_EDGE = ((300, 50004, 2040), (20, 1000, 70))
 INT8_PROB_MEAN_TOL = 5e-3
 INT8_PROB_MAX_TOL = 5e-2
 INT8_TRAIN_DIR = "runs/chip_smoke_int8_train"
+# The cli phase: the train/infer/serve/emit-vcf verbs and the HTTP front end
+# at tpu_default over files under CLI_DIR (inside the checkout, gitignored).
+# An imputed VCF prints HDS to three decimals: half a unit of the third
+# decimal, plus one float32 rounding of the native formatter's v * 1000.
+CLI_DIR = "runs/chip_smoke_cli"
+HDS_TOL = 5e-4 + 1e-6
 
 
 def fail(msg: str) -> None:
@@ -992,6 +1005,321 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
         profile_request(svc, targets[1][1])
     return counts
 
+def _write_panel(path: str, panel) -> None:
+    with open(path, "w") as f:
+        f.write("sample\tpop\n")
+        for s, pop in zip(panel.samples, panel.pop_list):
+            f.write(f"{s}\t{pop}\n")
+
+
+def _zlib_header() -> bool:
+    """Whether g++ finds zlib.h on its include path."""
+    try:
+        out = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                             input="#include <zlib.h>\n", capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    return out.returncode == 0
+
+
+def _check_imputed_vcf(path, gt, keep, hap1, hap2) -> None:
+    """An imputed VCF read back: GT at the target's known sites from the
+    native reader, IMPUTED on exactly the missing sites, HDS against the
+    probabilities."""
+    from rag_snvbert_tpu_torch.io.vcf import read_vcf
+
+    back = read_vcf(path, use_native=True)
+    check(back.gt.shape == (len(keep),) + gt.shape[1:]
+          and (back.gt[keep] == gt[keep]).all(),
+          f"{path}: GT at the known sites differs from the target")
+    info, hds = [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("#"):
+                continue
+            cols = line.rstrip("\n").split("\t")
+            info.append(cols[7] == "IMPUTED")
+            hds.append([c.split(":", 2)[1] for c in cols[9:]])
+    check(np.array_equal(np.asarray(info), ~keep),
+          f"{path}: IMPUTED does not mark exactly the missing sites")
+    hds = np.asarray([[v.split(",") for v in row] for row in hds],
+                     np.float64)
+    err = max(float(np.abs(hds[..., 0] - hap1).max()),
+              float(np.abs(hds[..., 1] - hap2).max()))
+    check(err <= HDS_TOL, f"{path}: HDS {err:.2e} from the probabilities "
+          f"(tol {HDS_TOL})")
+
+
+def _post(port: int, body: dict) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/impute", body=json.dumps(body))
+        r = conn.getresponse()
+        resp = json.loads(r.read())
+    finally:
+        conn.close()
+    check(r.status == 200 and resp.get("ok"), f"HTTP /impute: {resp}")
+    return resp
+
+
+def phase_cli(profile: bool = False) -> dict[str, int]:
+    """The system's main path through its entry points at tpu_default: VCF
+    files in, prepare-data, train, infer, emit-vcf, serve over JSON lines
+    (a subprocess) and over HTTP with cross-request batching, imputed VCFs
+    out; each verb's kernel launches counted."""
+    import threading
+
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.cli.main import main as cli
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.infer.httpd import make_server
+    from rag_snvbert_tpu_torch.infer.serve import BatchingImputationService
+    from rag_snvbert_tpu_torch.io import _native
+    from rag_snvbert_tpu_torch.io import vcf as vcf_io
+    from rag_snvbert_tpu_torch.io.freq import FreqTable
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+
+    cfg = PRESETS["tpu_default"]
+    m = cfg.model
+    card = card_line()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+
+    def at(name: str) -> str:
+        return os.path.join(CLI_DIR, name)
+
+    toolchain = shutil.which("g++") is not None and _zlib_header()
+    native = _native.get_vcf_reader() is not None
+    print(f"VCF reader and writer: {'native' if native else 'Python'} "
+          f"({_native.library_path() if native else 'no native library'}; "
+          f"g++ and zlib.h {'found' if toolchain else 'not found'})")
+    check(native or not toolchain,
+          "g++ and zlib.h are here but the native VCF library did not build")
+
+    # 1. the inputs: the serving bundle as VCF files, prepare-data on the
+    # reference panel (its frequency table and 1020-site windows)
+    bundle = make_bundle(n_train_samples=64, n_ref_samples=1004,
+                         n_sites=3 * 1020, n_windows=3, seed=17)
+    keep = np.random.default_rng(1).random(bundle.train.n_variants) >= 0.5
+    keep2 = np.random.default_rng(2).random(bundle.train.n_variants) >= 0.5
+    target, target2 = _drop(bundle.train, keep), _drop(bundle.train, keep2)
+    t = time.perf_counter()
+    vcf_io.write_simple_vcf(at("ref.vcf"), bundle.ref)
+    vcf_io.write_simple_vcf(at("train.vcf"), bundle.train)
+    vcf_io.write_simple_vcf(at("target.vcf"), target)
+    vcf_io.write_simple_vcf(at("target2.vcf"), target2)
+    _write_panel(at("ref.panel"), bundle.ref_panel)
+    _write_panel(at("train.panel"), bundle.panel)
+    print(f"wrote the VCFs in {time.perf_counter() - t:.2f} s")
+    cli(["prepare-data", "--vcf", at("ref.vcf"), "--panel", at("ref.panel"),
+         "--out", at("prep"), "--window-len", "1020"])
+    model_args = ["--preset", "tpu_default", "--refpanel_path", at("ref.vcf"),
+                  "--freq_path", at("prep/freq"), "--panel", at("train.panel"),
+                  "--model_path", at("run/ckpt_ep0"), "--batch_size", "32"]
+    n_win, n_samp = 3, target.n_samples
+    batches = n_win * -(-n_samp // 32)          # one request of 64 targets
+    by_verb = {}
+
+    # 2. train: one epoch at the training phase's shape
+    ops.reset_launches()
+    t = time.perf_counter()
+    cli(["train", "--preset", "tpu_default", "--train_dataset",
+         at("train.vcf"), "--train_panel", at("train.panel"),
+         "--refpanel_path", at("ref.vcf"), "--freq_path", at("prep/freq"),
+         "--window_path", at("prep/windows.csv"), "--output_path", at("run"),
+         "--epochs", "1", "--train_batch_size", "24",
+         "--grad_accum_steps", "2", "--seed", "0"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    by_verb["train"] = ops.launch_counts()
+    micro = n_win * -(-bundle.train.n_samples // 24)
+    want = {"attention": m.n_layers * micro, "attention_bwd": m.n_layers
+            * micro, "l2_topk": micro, "l2_topk_rf": 0, "l2_topk_float": 0}
+    print(f"train: {train_s:.2f} s for {micro} micro-steps and a "
+          f"checkpoint; launches {by_verb['train']} (expected {want}); "
+          f"{card}")
+    check(by_verb["train"] == want, "train did not go through every kernel")
+
+    # 3. infer from that checkpoint, then emit-vcf on its .npy files
+    ops.reset_launches()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cli(["infer", "--target", at("target.vcf"), "--output_vcf",
+         at("infer.vcf"), "--npy_prefix", at("infer"), *model_args])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t
+    by_verb["infer"] = ops.launch_counts()
+    want = {"attention": m.n_layers * batches, "attention_bwd": 0,
+            "l2_topk": batches, "l2_topk_rf": 0, "l2_topk_float": 0}
+    print(f"infer: {infer_s:.2f} s (model load, VCF parse, imputation and "
+          f"VCF write); launches {by_verb['infer']} (expected {want}); "
+          f"{card}")
+    check(by_verb["infer"] == want, "infer did not go through every kernel")
+    hap1, hap2 = (np.load(at(f"infer.{h}.npy")) for h in ("HAP1", "HAP2"))
+    flag = np.load(at("infer.POS_Flag.npy"))
+    check(np.array_equal(flag, ~keep), "infer's imputed flags")
+    _check_imputed_vcf(at("infer.vcf"), bundle.train.gt, keep, hap1, hap2)
+    cli(["emit-vcf", "--npy_prefix", at("infer"), "--refpanel_path",
+         at("ref.vcf"), "--output_vcf", at("emit.vcf"), "--samples",
+         ",".join(target.samples)])
+    with open(at("emit.vcf"), "rb") as a, open(at("infer.vcf"), "rb") as b:
+        same = a.read() == b.read()
+    print(f"emit-vcf: equal to infer's VCF byte for byte: {same}")
+    check(same, "emit-vcf's file differs from infer's")
+
+    # the target VCF parsed and its imputed VCF written by each path
+    t = time.perf_counter()
+    vcf_io.read_vcf(at("target.vcf"), use_native=True)
+    read_nat = time.perf_counter() - t
+    t = time.perf_counter()
+    vcf_io.read_vcf(at("target.vcf"), use_native=False)
+    read_py = time.perf_counter() - t
+    args = (bundle.ref.chrom, bundle.ref.pos, bundle.ref.ref, bundle.ref.alt,
+            target.samples, hap1, hap2)
+    t = time.perf_counter()
+    vcf_io.write_imputed_vcf(at("w_native.vcf"), *args, imputed_flag=flag)
+    write_nat = time.perf_counter() - t
+    real = _native.native_write_vcf_body
+    _native.native_write_vcf_body = lambda *a, **k: False
+    try:
+        t = time.perf_counter()
+        vcf_io.write_imputed_vcf(at("w_python.vcf"), *args,
+                                 imputed_flag=flag)
+        write_py = time.perf_counter() - t
+    finally:
+        _native.native_write_vcf_body = real
+    _check_imputed_vcf(at("w_python.vcf"), bundle.train.gt, keep, hap1, hap2)
+    print(f"target VCF ({target.n_variants} sites x {n_samp} samples) parse: "
+          f"{'native' if native else 'Python (no native library)'} "
+          f"{read_nat:.4f} s, Python {read_py:.4f} s; imputed VCF "
+          f"({bundle.ref.n_variants} x {n_samp}) write: "
+          f"{'native' if native else 'Python'} {write_nat:.4f} s, Python "
+          f"{write_py:.4f} s; {card}")
+
+    # 4. serve over JSON lines in a process of its own (kernels cached in
+    # _build/, CUDA initialised there)
+    torch.cuda.empty_cache()
+    reqs = [{"target": at(f"target{tag}.vcf"), "output_vcf":
+             at(f"serve{i}.vcf"), "npy_prefix": at(f"serve{i}")}
+            for i, tag in enumerate(("", "2"))]
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rag_snvbert_tpu_torch.cli.main", "serve",
+         *model_args], input="".join(json.dumps(r) + "\n" for r in reqs),
+        capture_output=True, text=True, timeout=600)
+    serve_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"serve exited {proc.returncode}:\n"
+          f"{proc.stderr[-4000:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    tail = json.loads(proc.stderr.strip().splitlines()[-1])
+    by_verb["serve"] = tail["launches"]
+    want = {"attention": 2 * m.n_layers * batches, "attention_bwd": 0,
+            "l2_topk": 2 * batches, "l2_topk_rf": 0, "l2_topk_float": 0}
+    print(f"serve (JSON lines, a subprocess): {serve_s:.2f} s in all; ready "
+          f"line {lines[0]}; responses {lines[1:]}; {tail}; request "
+          f"seconds {[r.get('seconds') for r in lines[1:]]}; {card}")
+    check(lines[0].get("ready") is True and len(lines) == 3
+          and all(r.get("ok") for r in lines[1:]) and tail["served"] == 2,
+          "serve did not answer both requests")
+    check(by_verb["serve"] == want,
+          f"serve did not go through every kernel (expected {want})")
+    with open(at("serve0.vcf"), "rb") as a, open(at("infer.vcf"), "rb") as b:
+        same = a.read() == b.read()
+    print(f"serve's first VCF equal to infer's byte for byte: {same}")
+    for i, k in enumerate((keep, keep2)):
+        _check_imputed_vcf(at(f"serve{i}.vcf"), bundle.train.gt, k,
+                           *(np.load(at(f"serve{i}.{h}.npy"))
+                             for h in ("HAP1", "HAP2")))
+
+    # 5. HTTP with cross-request batching, in this process: four requests
+    # at once (three sample subsets of one missing-site pattern, one of
+    # another), then the same four one at a time
+    parts = [(0, 24), (24, 48), (48, 64)]
+    for i, (a, b) in enumerate(parts):
+        vcf_io.write_simple_vcf(at(f"part{i}.vcf"), dataclasses.replace(
+            target, gt=target.gt[:, a:b], samples=target.samples[a:b]))
+    files = [at(f"part{i}.vcf") for i in range(3)] + [at("target2.vcf")]
+    model = build_model(cfg, bundle.vocab.size)
+    model.load_state_dict(torch.load(at("run/ckpt_ep0/state.pt"),
+                                     map_location="cuda",
+                                     weights_only=True)["params"])
+    svc = BatchingImputationService.create(
+        model, vcf_io.load_vcf_or_hdf5(at("ref.vcf")),
+        FreqTable.load(at("prep/freq")), batch_size=32)
+    server = make_server(svc)                       # an ephemeral port
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    walls, resps, merges = {}, {}, []
+    ops.reset_launches()
+
+    def post(tag: str, i: int) -> None:
+        resps[tag, i] = _post(port, {"target": files[i],
+                                     "npy_prefix": at(f"{tag}{i}")})
+
+    try:
+        # a first request warms the scheduler thread, then two rounds of:
+        # the four at once, the four one at a time (the service's own
+        # 25 ms linger for merge partners throughout)
+        post("warm", 3)
+        for r in (0, 1):
+            before = dict(svc.stats)
+            threads = [threading.Thread(target=post, args=(f"merged{r}_", i))
+                       for i in range(4)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            walls["merged", r] = time.perf_counter() - t
+            merges.append({k: v - before[k] for k, v in svc.stats.items()})
+            t = time.perf_counter()
+            for i in range(4):
+                post(f"solo{r}_", i)
+            walls["solo", r] = time.perf_counter() - t
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    serving.join(timeout=60)
+    torch.cuda.synchronize()
+    by_verb["http"] = ops.launch_counts()
+    check(len(resps) == 17 and not serving.is_alive()
+          and not svc._thread.is_alive(), "the HTTP server did not stop")
+    print(f"HTTP, BatchingImputationService, after a warm-up request "
+          f"({resps['warm', 3]['seconds']} s): ")
+    for r in (0, 1):
+        print(f"  round {r}: four concurrent requests "
+              f"{walls['merged', r]:.3f} s wall (request seconds "
+              f"{[resps[f'merged{r}_', i]['seconds'] for i in range(4)]}; "
+              f"{merges[r]}), the same four in sequence "
+              f"{walls['solo', r]:.3f} s (request seconds "
+              f"{[resps[f'solo{r}_', i]['seconds'] for i in range(4)]})")
+    print(f"  launches {by_verb['http']}; {card}")
+    check(all(d["merged_requests"] >= 2 and d["impute_calls"] < 4
+              for d in merges),
+          "the concurrent same-pattern requests were not merged")
+    worst = 0.0
+    for r in (0, 1):
+        for i in range(4):
+            for h in ("HAP1", "HAP2", "GT"):
+                a, b = (np.load(at(f"{tag}{r}_{i}.{h}.npy"))
+                        for tag in ("merged", "solo"))
+                worst = max(worst, float(np.abs(a - b).max()))
+    print(f"merged HTTP results against solo imputation: largest |dp| "
+          f"{worst:.3e} (exact expected: the same batch shape)")
+    check(worst == 0.0, "merged results differ from solo imputation")
+    h = by_verb["http"]
+    check(h["l2_topk"] > 0 and h["attention"] == m.n_layers * h["l2_topk"]
+          and h["attention_bwd"] == 0, "HTTP serving did not go through "
+          "the attention and l2_topk kernels")
+    return {k: sum(c.get(k, 0) for c in by_verb.values())
+            for k in by_verb["train"]}
+
 
 def _int8_layer_check() -> None:
     """One Int8Dense of each shape the encoder has at tpu_default (an
@@ -1785,7 +2113,8 @@ def main() -> None:
                         ("token_serving", phase_token_serving),
                         ("token_training", phase_token_training),
                         ("index", lambda _profile: phase_index(gen)),
-                        ("int8", phase_int8)):
+                        ("int8", phase_int8),
+                        ("cli", phase_cli)):
         torch.cuda.empty_cache()
         t = time.perf_counter()
         paths[name] = phase(profile)

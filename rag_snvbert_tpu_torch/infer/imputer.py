@@ -1,13 +1,14 @@
-"""Window-major imputation: masked-site prediction, scatter-back, NPY output
-and progressive refinement, in embedding-RAG (V18) or token-RAG (V17) mode.
+"""Window-major imputation: masked-site prediction, scatter-back, NPY and
+VCF output and progressive refinement, in embedding-RAG (V18), token-RAG
+(V17) or no-RAG mode.
 
 Port of rag_snvbert_tpu/infer/imputer.py.  Kept: fixed-stride (or
 window-table) windows, one-window lookahead of the reference context, the
 threaded query assembly, the depth-bounded pipeline of device outputs, and
 persisted per-window embedding indexes (``save_window_indexes``,
 ``index_dir``; the same ``index_{w}.npz`` and ``manifest.json`` as the JAX
-package, so either package's files serve the other).  Not ported yet: the
-no-RAG mode, the device mesh, and VCF writing.
+package, so either package's files serve the other).  The device mesh of
+data-parallel serving waits for ROADMAP Queue A 7.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..data.tokenize import position_normalize, sequence_padding, tokenize
 from ..device import resolve_device
 from ..index.flat import FlatL2Index
 from ..io.freq import AF, FreqTable
-from ..io.vcf import VCFData
+from ..io.vcf import VCFData, write_imputed_vcf
 from ..io.vocab import INFER_WINDOW_LEN, MAX_SEQ_LEN
 from ..train.retrieval import (TokenWindowContext, WindowRefContext,
                                build_token_window_ctx, check_int8_vocab,
@@ -48,16 +49,24 @@ class ImputationResult:
         np.save(prefix + ".POS.npy", self.pos)
         np.save(prefix + ".POS_Flag.npy", self.imputed_flag)
 
+    def write_vcf(self, path: str, ref_vcf: VCFData,
+                  sample_names: list[str]) -> None:
+        """The imputed VCF (GT/HDS/GP/DS) over ``ref_vcf``'s sites."""
+        write_imputed_vcf(path, ref_vcf.chrom, self.pos, ref_vcf.ref,
+                          ref_vcf.alt, sample_names, self.hap1_prob,
+                          self.hap2_prob, imputed_flag=self.imputed_flag)
+
 
 class Imputer:
     """Impute target samples onto the reference panel's site list.
 
     ``model`` is a ``BERTFoundationModel`` over ``BERTWithEmbeddingRAG``
-    (``rag_mode="embedding"``, V18) or ``BERTWithRAG`` (``"token"``, V17:
+    (``rag_mode="embedding"``, V18), ``BERTWithRAG`` (``"token"``, V17:
     the context is the window's masked reference tokens and the model
-    re-encodes the retrieved segments); ``"none"`` is not ported yet.  The
-    model is moved to ``device`` (``None``: the card, raising without one;
-    ``"cpu"`` runs off the card).  ``use_kernel=False`` searches with the
+    re-encodes the retrieved segments) or ``BERT`` (``"none"``: no window
+    context, the plain forward; presets ``v10_baseline``,
+    ``v13_optimized``).  The model is moved to ``device`` (``None``: the
+    card, raising without one; ``"cpu"`` runs off the card).  ``use_kernel=False`` searches with the
     plain version even on the card (the JAX ``use_pallas=False``).
 
     ``index_dir``: load the per-window embedding indexes written by
@@ -77,9 +86,8 @@ class Imputer:
                  use_kernel: bool = True, window=None,
                  pipeline_depth: int = 8, device=None,
                  rag_mode: str = "embedding", index_dir: str | None = None):
-        if rag_mode not in ("embedding", "token"):
-            raise NotImplementedError(f"rag_mode={rag_mode!r}: the no-RAG "
-                                      "imputer is not ported yet")
+        if rag_mode not in ("embedding", "token", "none"):
+            raise ValueError(f"unknown rag_mode {rag_mode!r}")
         if index_dir is not None and rag_mode != "embedding":
             raise ValueError("persisted indexes exist only for "
                              "embedding-space RAG (token-space indexes are "
@@ -118,9 +126,11 @@ class Imputer:
 
     def _window_ctx(self, s: int, e: int, site_mask: np.ndarray,
                     w: int | None = None
-                    ) -> WindowRefContext | TokenWindowContext:
+                    ) -> WindowRefContext | TokenWindowContext | None:
         """Window ``w`` (sites ``s:e``)'s search context: encoded, or with
-        ``index_dir`` loaded from ``index_{w}``."""
+        ``index_dir`` loaded from ``index_{w}``; None without RAG."""
+        if self.rag_mode == "none":
+            return None
         raw = self.ref_vcf.gt[s:e]                    # [n, S, 2]
         raw = raw.reshape(raw.shape[0], -1).T          # [2S, n]
         toks = tokenize(raw, None, self.seq_len).astype(np.int32)
@@ -201,13 +211,15 @@ class Imputer:
         return manifest
 
     def _forward(self, batch: dict,
-                 ctx: WindowRefContext | TokenWindowContext):
+                 ctx: WindowRefContext | TokenWindowContext | None):
         b = batch["hap_1"].shape[0]
         batch = {k: (v[None, :].expand(b, v.shape[0])
                      if k in self._WINDOW_CONST and v.dim() == 1 else v)
                  for k, v in batch.items()}
         if isinstance(ctx, TokenWindowContext):
             x = retrieve_tokens(batch, ctx, self.rag_k, self.use_kernel)
+        elif ctx is None:
+            x = batch
         else:
             x = retrieve(self._embed, batch, ctx, self.rag_k,
                          self.use_kernel)

@@ -431,11 +431,12 @@ class Trainer:
 
     def init_params_from(self, path: str) -> None:
         """Warm start from a params-only checkpoint: waits for the port's
-        checkpoint converter (ROADMAP Queue A, the CLI item)."""
+        checkpoint converter (ROADMAP Queue A, item A9)."""
         raise NotImplementedError(
-            "init_params_from: params-only checkpoints come with the "
-            "port's CLI slice (ROADMAP Queue A, CLI); load a flax params "
-            "tree with interop.load_flax_params instead")
+            "init_params_from: params-only checkpoints come with the rest "
+            "of the port's CLI and checkpoint interop (ROADMAP Queue A, "
+            "item A9); load a flax params tree with "
+            "interop.load_flax_params instead")
 
     # ---- logging ----
 

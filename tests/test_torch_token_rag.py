@@ -278,9 +278,14 @@ def test_token_service_answers_two_requests(setup):
 
 def test_imputer_modes_left_for_later_slices_and_int8_vocab(setup):
     s = setup
-    with pytest.raises(NotImplementedError, match="no-RAG"):
+    # the no-RAG mode is ported (no window context); a mode that does not
+    # exist raises
+    imp = Imputer(s["tm"], s["tb"].ref, s["tb"].freq, device="cpu",
+                  rag_mode="none", **KW)
+    assert imp._window_ctx(0, 10, np.zeros(10, bool)) is None
+    with pytest.raises(ValueError, match="rag_mode"):
         Imputer(s["tm"], s["tb"].ref, s["tb"].freq, device="cpu",
-                rag_mode="none", **KW)
+                rag_mode="tokens", **KW)
     tretrieval.check_int8_vocab(s["tm"])
     wide = tconfig.build_model(_tcfg(), 200, device="cpu")
     with pytest.raises(ValueError, match="fit int8"):
