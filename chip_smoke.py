@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``rag_snvbert_tpu_torch/csrc`` (one nvcc
 per source, started together) and holds each kernel against its plain
-PyTorch version at the main paths' shapes.  Then it drives eight paths
+PyTorch version at the main paths' shapes.  Then it drives ten paths
 with seeded random weights or data, each with the launch counts set to 0
 just before it and read just after:
   - the int8 probe tools (``python -m rag_snvbert_tpu_torch.tools.probe_mxu``,
@@ -39,6 +39,14 @@ just before it and read just after:
     requests), and the HTTP front end over ``BatchingImputationService``
     (four concurrent requests, three of them merged, then the four one at
     a time); the imputed VCFs are read back;
+  - checkpoint interop under ``runs/chip_smoke_interop/``: a reference
+    state_dict at ``v18_embedding_rag`` width through ``convert-ckpt``,
+    ``infer`` (its ``l2_topk`` ids held against the plain search), two
+    service requests, ``export-ckpt`` and a reconversion (bit-identical),
+    and two micro-steps of ``train --init-from``;
+  - ``tools/run_convergence.py`` at ``tpu_default`` on a four-window
+    calibrated panel under ``runs/chip_smoke_convergence/``: an epoch with
+    ``--profile`` and one more through ``--resume``, the trace summarized;
 and checks the answers and the launch counts of each path.  V18 serving
 also writes window 0's index and serves that window from it.  It prints
 one JSON line of per-kernel numbers, the card's name and power limit, and
@@ -50,8 +58,10 @@ the package.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import copy
+import csv
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -83,6 +93,10 @@ ATTN_TOL = 2 ** -6
 # each a float32 sum of 395,520 products taken in another order on each
 # side: errors are measured relative to that scale, eps * sqrt(d) ~ 4e-5.
 L2_REL_TOL = 2e-4
+# The converted model's searches (phase_interop) against the exact nearest
+# rows: a pick may sit above the nearest by a few float32 ulps (2^-23 each)
+# of that scale, the rounding of the kernel's float32 sums, and no more.
+INTEROP_TIE_REL = 1e-6
 # Serving vs the plain path on the card (no kernels; bf16 attention scores
 # as the tpu_default einsum path has them): bf16 roundings 12 layers deep
 # move imputed probabilities by ~1e-3 on average, ~1e-2 at most.
@@ -1321,6 +1335,342 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
             for k in by_verb["train"]}
 
 
+# The interop phase: a reference checkpoint at v18_embedding_rag's width
+# through convert-ckpt, infer, export-ckpt and train --init-from, under
+# INTEROP_DIR (inside the checkout, gitignored).  The convergence phase:
+# tools/run_convergence.py on the calibrated panel cut to CONV_WINDOWS
+# windows of CONV_SAMPLES samples (the full 1004-sample reference panel),
+# under CONV_DIR.
+INTEROP_DIR = "runs/chip_smoke_interop"
+CONV_DIR = "runs/chip_smoke_convergence"
+CONV_WINDOWS, CONV_SAMPLES = 4, 48
+
+
+def _reference_state_dict(n_layers: int, dims: int, vocab: int,
+                          seed: int) -> dict:
+    """A reference state_dict of seeded random values by the key/shape
+    contract (tests/test_torch_interop.py::fake_state_dict's recipe)."""
+    from rag_snvbert_tpu_torch.interop import expected_reference_keys
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in expected_reference_keys(n_layers, dims, vocab).items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = np.asarray(0)
+        elif k.endswith("running_var"):
+            sd[k] = rng.uniform(0.5, 2.0, shape).astype(np.float32)
+        else:
+            sd[k] = rng.normal(0, 0.5, shape).astype(np.float32)
+    return sd
+
+
+def _exact_nearest(q, ctx, ids, plain) -> dict:
+    """One top-1 search against the exact nearest rows: distances in
+    float64 from the bf16 operands (each product exact), relative to the
+    nearest's |q|^2 + |r|^2.  ``kernel_excess``/``plain_excess``: how far
+    above the nearest each pick is; ``differ_gap``: the gap from the
+    nearest to the second nearest row, largest over the queries whose
+    picks differ (a near-tie there explains the difference);
+    ``exact_ties``/``near_ties``: queries whose two nearest rows are equal
+    / within INTEROP_TIE_REL."""
+    n = ctx.ref_emb_search.shape[0]
+    qd = q.detach().to(ctx.ref_emb_search.dtype).reshape(q.shape[0], -1)
+    qd = qd.double()
+    rows = ctx.ref_emb_search.reshape(n, -1)
+    q2 = (qd * qd).sum(1)
+    d, r2 = [], []
+    for i in range(0, n, 256):
+        r = rows[i:i + 256].double()
+        r2.append((r * r).sum(1))
+        d.append(q2[:, None] - 2 * qd @ r.T + r2[-1][None, :])
+    d, r2 = torch.cat(d, 1), torch.cat(r2)
+    two = d.topk(2, dim=1, largest=False)
+    scale = q2 + r2[two.indices[:, 0]]
+    gap = (two.values[:, 1] - two.values[:, 0]) / scale
+
+    def excess(pick):
+        return ((d.gather(1, pick[:, None])[:, 0] - two.values[:, 0])
+                / scale).max().item()
+
+    differ = ids != plain
+    return {"queries": len(ids), "rows": n, "differ": int(differ.sum()),
+            "kernel_excess": excess(ids), "plain_excess": excess(plain),
+            "differ_gap": gap[differ].max().item() if differ.any() else 0.0,
+            "exact_ties": int((gap == 0).sum()),
+            "near_ties": int((gap <= INTEROP_TIE_REL).sum())}
+
+
+def phase_interop(profile: bool = False) -> dict[str, int]:
+    """A reference checkpoint at v18_embedding_rag's width (384d, 12 layers,
+    12 heads, post-LN, float32, frozen BatchNorm statistics) through the
+    port's verbs: convert-ckpt, infer on the card over the serving bundle
+    (attention dropout 0.1, so the einsum path as in the JAX package, and
+    the l2_topk kernel, whose ids are held against the plain search on the
+    same inputs), export-ckpt and a reconversion, and two micro-steps of
+    train --init-from."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.cli.main import main as cli
+    from rag_snvbert_tpu_torch.config import get_preset
+    from rag_snvbert_tpu_torch.io import vcf as vcf_io
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.io.windows import Window
+    from rag_snvbert_tpu_torch.ops import l2_ref
+    from rag_snvbert_tpu_torch.train import retrieval
+
+    m = get_preset("v18_embedding_rag").model
+    card = card_line()
+    shutil.rmtree(INTEROP_DIR, ignore_errors=True)
+    os.makedirs(INTEROP_DIR)
+
+    def at(name: str) -> str:
+        return os.path.join(INTEROP_DIR, name)
+
+    bundle = make_bundle(n_train_samples=64, n_ref_samples=1004,
+                         n_sites=3 * 1020, n_windows=3, seed=17)
+    keep = np.random.default_rng(1).random(bundle.train.n_variants) >= 0.5
+    target = _drop(bundle.train, keep)
+    vcf_io.write_simple_vcf(at("ref.vcf"), bundle.ref)
+    vcf_io.write_simple_vcf(at("train.vcf"), bundle.train)
+    vcf_io.write_simple_vcf(at("target.vcf"), target)
+    _write_panel(at("ref.panel"), bundle.ref_panel)
+    _write_panel(at("train.panel"), bundle.panel)
+    cli(["prepare-data", "--vcf", at("ref.vcf"), "--panel", at("ref.panel"),
+         "--out", at("prep"), "--window-len", "1020"])
+    sd = _reference_state_dict(m.n_layers, m.dims, bundle.vocab.size, 5)
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
+               at("reference.pt"))
+    n_win, n_samp = 3, target.n_samples
+    batches = n_win * -(-n_samp // 32)
+    counts = {}
+
+    # 1. convert-ckpt
+    ops.reset_launches()
+    t = time.perf_counter()
+    cli(["convert-ckpt", "--torch_ckpt", at("reference.pt"), "--out",
+         at("conv"), "--attn-heads", str(m.attn_heads)])
+    convert_s = time.perf_counter() - t
+    with open(at("conv/convert_meta.json")) as f:
+        meta = json.load(f)
+    print(f"convert-ckpt: {convert_s:.2f} s, {len(sd)} reference tensors "
+          f"-> {meta}")
+    check((meta["dims"], meta["n_layers"], meta["attn_heads"],
+           meta["pos_norm"], meta["pre_ln"]) == (m.dims, m.n_layers,
+                                                 m.attn_heads, "frozen_batch",
+                                                 False),
+          f"convert-ckpt recorded {meta}")
+
+    # 2. infer on the card, every search's ids held against the plain
+    # search on the same inputs and against the exact nearest rows
+    # (float64; those comparison searches launch nothing)
+    real_search, searches = retrieval.search, []
+
+    def held(q, ctx, k, use_kernel=True):
+        ids = real_search(q, ctx, k, use_kernel)
+        plain = real_search(q, ctx, k, False)
+        check(k == 1, f"the converted model searched top-{k}, not top-1")
+        searches.append(_exact_nearest(q, ctx, ids[:, 0], plain[:, 0]))
+        return ids
+
+    retrieval.search = held
+    model_args = ["--refpanel_path", at("ref.vcf"), "--freq_path",
+                  at("prep/freq"), "--panel", at("train.panel"),
+                  "--model_path", at("conv"), "--batch_size", "32"]
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cli(["infer", "--target", at("target.vcf"), "--output_vcf",
+             at("infer.vcf"), "--npy_prefix", at("infer"), *model_args])
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t
+    finally:
+        retrieval.search = real_search
+    counts["infer"] = ops.launch_counts()
+    want = {"attention": 0, "attention_bwd": 0, "l2_topk": batches,
+            "l2_topk_rf": 0, "l2_topk_float": 0}
+    st = {key: [s[key] for s in searches] for key in searches[0]}
+    print(f"infer of the converted model: {infer_s:.2f} s in all (model "
+          f"build, checkpoint load, VCF parse, imputation, VCF write); "
+          f"launches {counts['infer']} (expected {want}); {len(searches)} "
+          f"searches of [{2 * 32}, {searches[0]['rows']}] rows; kernel ids "
+          f"differ from the plain search's in {sum(st['differ'])} of "
+          f"{sum(st['queries'])} queries; in exact (float64) distances, "
+          f"relative to |q|^2+|r|^2: the kernel's pick above the nearest by "
+          f"at most {max(st['kernel_excess']):.3e}, the plain pick by "
+          f"{max(st['plain_excess']):.3e} (tol {INTEROP_TIE_REL:.0e}); "
+          f"nearest-to-second gap where the picks differ at most "
+          f"{max(st['differ_gap']):.3e}; queries whose two nearest rows tie "
+          f"exactly {sum(st['exact_ties'])}, within the tol "
+          f"{sum(st['near_ties'])}; {card}")
+    check(counts["infer"] == want, "infer of a converted model did not go "
+          "through the l2_topk kernel")
+    check(len(searches) == batches
+          and max(st["kernel_excess"]) <= INTEROP_TIE_REL
+          and max(st["differ_gap"]) <= INTEROP_TIE_REL,
+          "the converted model's retrieval differs from the exact nearest "
+          "rows, or from the plain search where no near-tie explains it")
+    hap1, hap2 = (np.load(at(f"infer.{h}.npy")) for h in ("HAP1", "HAP2"))
+    gt = np.load(at("infer.GT.npy"))
+    check(bool(np.isfinite(gt).all() and (gt >= 0).all() and (gt <= 1).all()
+               and np.abs(gt.sum(-1) - 1).max() < 1e-3),
+          "converted-model genotype probabilities")
+    _check_imputed_vcf(at("infer.vcf"), bundle.train.gt, keep, hap1, hap2)
+
+    # the converted model behind ImputationService: a cold and a warm
+    # request (the same kernels, counted on this path)
+    from rag_snvbert_tpu_torch.cli.main import _load_infer_model, \
+        build_parser
+    from rag_snvbert_tpu_torch.infer.serve import ImputationService
+    from rag_snvbert_tpu_torch.io.freq import FreqTable
+
+    args = build_parser().parse_args(["infer", "--target", "x",
+                                      "--output_vcf", "x", *model_args])
+    model, rag_mode = _load_infer_model(args)
+    svc = ImputationService.create(model, bundle.ref,
+                                   FreqTable.load(at("prep/freq")),
+                                   batch_size=32, rag_mode=rag_mode)
+    ops.reset_launches()
+    req_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = svc.handle_target(target)
+        torch.cuda.synchronize()
+        req_s.append(time.perf_counter() - t)
+    counts["requests"] = ops.launch_counts()
+    n_imp = int(res.imputed_flag.sum()) * n_samp
+    print(f"converted model, ImputationService requests: cold "
+          f"{req_s[0]:.3f} s, warm {req_s[1]:.3f} s, {n_imp / req_s[1]:.0f} "
+          f"imputed genotypes/s; launches {counts['requests']}; {card}")
+    check(counts["requests"]["l2_topk"] == 2 * batches
+          and np.array_equal(res.hap1_prob, hap1), "a converted-model "
+          "request differs from infer's, or skipped the l2_topk kernel")
+    del svc, model
+    torch.cuda.empty_cache()
+
+    # 3. export-ckpt, then convert the export again: the same parameters
+    # bit for bit
+    cli(["export-ckpt", "--ckpt", at("conv"), "--out", at("export.pt")])
+    cli(["convert-ckpt", "--torch_ckpt", at("export.pt"), "--out",
+         at("conv2"), "--attn-heads", str(m.attn_heads)])
+    a, b = (torch.load(at(f"{d}/state.pt"), weights_only=True)["params"]
+            for d in ("conv", "conv2"))
+    exported = torch.load(at("export.pt"), weights_only=True)
+    same_src = all(torch.equal(exported[k], torch.from_numpy(
+        np.asarray(v))) for k, v in sd.items()
+        if not k.endswith(("num_batches_tracked", "position.pe")))
+    round_trip = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                              for k in a)
+    print(f"export-ckpt -> convert-ckpt: {len(a)} parameters bit-identical "
+          f"{round_trip}; export equal to the source tensors {same_src}")
+    check(round_trip and same_src, "export/convert round trip is not exact")
+
+    # 4. train --init-from: 8 samples of the first two windows, batch 8
+    # (float32 scores of 12 heads: ~20 GB of activations), one epoch = two
+    # micro-steps
+    np.save(at("train_samples.npy"), np.arange(8))
+    Window(Window.from_file(at("prep/windows.csv")).window_info[:2]
+           ).save_csv(at("windows2.csv"))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cli(["train", "--train_dataset", at("train.vcf"), "--train_panel",
+         at("train.panel"), "--refpanel_path", at("ref.vcf"), "--freq_path",
+         at("prep/freq"), "--window_path", at("windows2.csv"),
+         "--output_path", at("finetune"), "--epochs", "1",
+         "--train_batch_size", "8", "--grad_accum_steps", "1",
+         "--warmup_steps", "5", "--train-samples", at("train_samples.npy"),
+         "--init-from", at("conv"), "--seed", "0", "--log_freq", "1"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    counts["train"] = ops.launch_counts()
+    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 2,
+            "l2_topk_rf": 0, "l2_topk_float": 0}
+    state = torch.load(at("finetune/ckpt_ep0/state.pt"), weights_only=True)
+    moved = [float((state["params"][k].cpu() - a[k]).abs().max())
+             for k in a]
+    losses = [json.loads(line)["loss"]
+              for line in open(at("finetune/events.jsonl"))
+              if '"step"' in line]
+    print(f"train --init-from: {train_s:.2f} s for {state['step']} "
+          f"micro-steps; losses {losses}; largest parameter move "
+          f"{max(moved):.3e}, parameters unmoved {sum(x == 0 for x in moved)}"
+          f" of {len(moved)} (FrozenBatchNorm statistics stay); launches "
+          f"{counts['train']} (expected {want}); {card}")
+    check(counts["train"] == want and state["step"] == 2
+          and state["opt_state"]["count"] == 2 and all(np.isfinite(losses)),
+          "train --init-from did not take two micro-steps through l2_topk")
+    check(0 < max(moved) < 0.05, "the warm start did not start from the "
+          "converted weights")
+    return {k: sum(c.get(k, 0) for c in counts.values())
+            for k in counts["infer"]}
+
+
+def phase_convergence(profile: bool = False) -> dict[str, int]:
+    """tools/run_convergence.py at tpu_default on the calibrated panel cut
+    to CONV_WINDOWS windows of CONV_SAMPLES samples (the full 2008-haplotype
+    reference): epoch 0 with --profile, then --resume for epoch 1; the
+    rare/common F1 columns, the curriculum replayed by the restore, and a
+    trace whose summary names the attention and l2_topk kernels."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS
+    from rag_snvbert_tpu_torch.tools import run_convergence, summarize_trace
+
+    cfg = PRESETS["tpu_default"]
+    card = card_line()
+    shutil.rmtree(CONV_DIR, ignore_errors=True)
+    argv = ["--out", CONV_DIR, "--windows", str(CONV_WINDOWS), "--samples",
+            str(CONV_SAMPLES), "--log-freq", "4"]
+    ops.reset_launches()
+    t = time.perf_counter()
+    first = run_convergence.main(argv + ["--epochs", "1", "--profile"])
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    resumed = run_convergence.main(argv + ["--epochs", "2", "--resume"])
+    resume_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    m = cfg.model.n_layers
+    micro = CONV_WINDOWS * -(-first["train_samples"] // cfg.batch_size)
+    val = CONV_WINDOWS * -(-first["val_samples"] // 48)   # TrainerConfig's
+    want = {"attention": 2 * m * (micro + val), "attention_bwd": 2 * m * micro,
+            "l2_topk": 2 * (micro + val), "l2_topk_rf": 0, "l2_topk_float": 0}
+    with open(os.path.join(CONV_DIR, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    print(f"run_convergence: epoch 0 with --profile {first_s:.1f} s, "
+          f"--resume epoch 1 {resume_s:.1f} s ({first['train_samples']} "
+          f"train / {first['val_samples']} val samples, {micro} micro-steps "
+          f"and {val} validation steps an epoch); launches {counts} "
+          f"(expected {want}); {card}")
+    for r in rows:
+        sps = first["train_samples"] * CONV_WINDOWS / float(
+            r["train_epoch_seconds"])
+        print("  epoch {epoch} level {level}: train {train_epoch_seconds} s"
+              " ({sps:.1f} samples/s), val hap F1 {val_hap_f1}, rare F1 "
+              "{val_rare_f1}, common F1 {val_common_f1}".format(sps=sps, **r))
+    check(counts == want, "the convergence run did not go through every "
+          "kernel")
+    check([(r["epoch"], r["level"]) for r in rows] == [("0", "0"), ("1", "1")]
+          and resumed["resumed_from"] == 1,
+          "the resumed run did not replay the curriculum")
+    check(all(0.0 <= float(r[f"{s}_{c}_f1"]) <= 1.0 for r in rows
+              for s in ("train", "val") for c in ("rare", "common", "hap")),
+          "rare/common F1 columns missing or outside [0, 1]")
+    path = summarize_trace.find_trace(os.path.join(CONV_DIR, "profile"))
+    text = summarize_trace.summarize(summarize_trace.load_events(path),
+                                     top=60, classes=True)
+    print("trace of 4 steady micro-steps, device tracks:")
+    for line in text.splitlines():
+        if line.startswith("== device") or line.startswith(
+                ("attention_", "l2_", "void attention", "void l2")):
+            print(f"  {line}")
+    names = ("attention_fwd_kernel", "attention_bwd_dq_kernel",
+             "attention_bwd_dkv_kernel", "l2_partial_dots", "l2_select")
+    check("== device" in text and all(n in text for n in names),
+          "the trace's summary does not name the attention and l2_topk "
+          "kernels")
+    return counts
+
+
 def _int8_layer_check() -> None:
     """One Int8Dense of each shape the encoder has at tpu_default (an
     attention projection 384 -> 384, the FFN's w_1 384 -> 1536 and w_2 1536
@@ -1562,6 +1912,73 @@ def _grads_of_one_batch(model, batch, ctx_of, use_kernel: bool):
     return loss.item(), grads
 
 
+def _per_tensor_step(opt, grads) -> None:
+    """``Optimizer.step`` as a loop over the tensors, one formula each (the
+    optimizer before its multi-tensor form, but for the accumulation's
+    divisor, a device tensor as in the optimizer: the formulas
+    test_optimizer_matches_optax pins on the CPU)."""
+    if opt.acc is not None:
+        n = opt.mini_step
+        n1 = torch.tensor(n + 1, dtype=torch.float32, device="cuda")
+        for a, g in zip(opt.acc, grads):
+            a.copy_(a + (g - a) / n1)
+        if n < opt.accum_steps - 1:
+            opt.mini_step = n + 1
+            return
+        grads = opt.acc
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    below = norm < opt.clip_norm
+    lr = opt.schedule(opt.count)
+    opt.count += 1
+    bc1 = (1 - torch.tensor(opt.b1) ** opt.count).to(norm.device)
+    bc2 = (1 - torch.tensor(opt.b2) ** opt.count).to(norm.device)
+    for p, g, mu, nu in zip(opt.params, grads, opt.mu, opt.nu):
+        g = torch.where(below, g, g / norm * opt.clip_norm)
+        mu.copy_((1 - opt.b1) * g + opt.b1 * mu)
+        nu.copy_((1 - opt.b2) * torch.square(g) + opt.b2 * nu)
+        u = (mu / bc1) / (torch.sqrt(nu / bc2) + opt.eps)
+        p.copy_(p + -lr * u)
+    if opt.acc is not None:
+        for a in opt.acc:
+            a.zero_()
+        opt.mini_step = 0
+
+
+def _optimizer_check(opt, grad_scale: float, clipped: bool) -> None:
+    """The optimizer's multi-tensor update on the card against the same
+    step as a loop over the tensors (``_per_tensor_step``), from ``opt``'s
+    state with the same gradients: accum_steps micro-steps, one of them an
+    update, bit for bit.  (Not against the CPU: CUDA's float32 sqrt rounds
+    unlike the CPU's.)  ``clipped``: the mean gradient's global norm is
+    above the clip, else below."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    grads = [[torch.randn(p.shape, generator=gen, device="cuda") * grad_scale
+              for p in opt.params] for _ in range(opt.accum_steps)]
+    norm = math.sqrt(sum(float(torch.sum(torch.square(
+        sum(g[i] for g in grads) / len(grads))))
+        for i in range(len(opt.params))))
+    check((norm > opt.clip_norm) == clipped, f"optimizer check: mean "
+          f"gradient norm {norm:.3g} against the clip {opt.clip_norm}")
+    ref = copy.deepcopy(opt)
+    ref.params = [p.detach().clone() for p in opt.params]
+    for step_grads in grads:            # accum_steps calls: one updates
+        for p, g in zip(opt.params, step_grads):
+            p.grad = g
+        opt.step()
+        opt.zero_grad()
+        _per_tensor_step(ref, step_grads)
+    torch.cuda.synchronize()
+    same = {key: all(torch.equal(a, b) for a, b in
+                     zip(getattr(opt, key) or [], getattr(ref, key) or []))
+            for key in ("params", "mu", "nu", "acc")}
+    print(f"optimizer: {opt.accum_steps} micro-steps with an update over "
+          f"{len(opt.params)} tensors (mean gradient norm {norm:.3g}, clip "
+          f"{opt.clip_norm}), multi-tensor against per-tensor on the card, "
+          f"bit for bit: {same}")
+    check(opt.count == ref.count and all(same.values()), "the optimizer's "
+          "multi-tensor update differs from the per-tensor one")
+
+
 def phase_training(profile: bool = False) -> dict[str, int]:
     from rag_snvbert_tpu_torch import ops
     from rag_snvbert_tpu_torch.config import PRESETS, build_model
@@ -1688,6 +2105,18 @@ def phase_training(profile: bool = False) -> dict[str, int]:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if profile:
         profile_train_steps(trainer, opt, batch, ctx)
+    _optimizer_check(opt, grad_scale=1e-2, clipped=True)
+    # below the clip, and an average over three micro-steps (a division
+    # by 3), from a copy of the trained state
+    from rag_snvbert_tpu_torch.train.schedule import Optimizer
+    three = Optimizer([(n, p.detach().clone()) for n, p in
+                       zip(opt.names, opt.params)], accum_steps=3)
+    for key in ("mu", "nu"):
+        for dst, src in zip(getattr(three, key), getattr(opt, key)):
+            dst.copy_(src)
+    three.count = opt.count
+    _optimizer_check(three, grad_scale=1e-6, clipped=False)
+    del three
 
     # (iii) one batch, dropout off: the kernel path against the plain path
     # on the card (same weights: attention in plain torch math with float32
@@ -2114,7 +2543,9 @@ def main() -> None:
                         ("token_training", phase_token_training),
                         ("index", lambda _profile: phase_index(gen)),
                         ("int8", phase_int8),
-                        ("cli", phase_cli)):
+                        ("cli", phase_cli),
+                        ("interop", phase_interop),
+                        ("convergence", phase_convergence)):
         torch.cuda.empty_cache()
         t = time.perf_counter()
         paths[name] = phase(profile)

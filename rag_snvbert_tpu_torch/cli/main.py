@@ -18,10 +18,17 @@ and files, so what either package writes the other reads:
                  HTTP with cross-request batching (``--http [HOST:]PORT``)
   emit-vcf     : the NPY probability matrices of ``infer --npy_prefix``
                  -> imputed VCF (generate_vcf.py)
+  analyze      : a run's per-epoch table and metrics plot, a frequency
+                 table's audit
+  convert-ckpt : a reference (torch) checkpoint -> a port checkpoint
+                 directory that ``infer``/``serve --model_path`` and
+                 ``train --init-from`` take
+  export-ckpt  : a port checkpoint -> a reference state_dict
 The model and the index live on the card unless ``--device cpu`` is given
-(the CLI form of the port's ``device="cpu"`` rule).  ``analyze``,
-``convert-ckpt`` and ``export-ckpt``, and the flags that need a module not
-ported yet, exit with the ROADMAP item that ports them.
+(the CLI form of the port's ``device="cpu"`` rule).  The flags that need a
+module not ported yet exit with the ROADMAP item that ports them.  An orbax
+checkpoint of the JAX package cannot be read here (no JAX): export it with
+the JAX package's ``export-ckpt``, then ``convert-ckpt`` the file.
 
 Run as ``python -m rag_snvbert_tpu_torch.cli.main <verb> --help``.
 """
@@ -36,9 +43,6 @@ import time
 
 import numpy as np
 import torch
-
-NOT_PORTED = {"analyze": "A9", "convert-ckpt": "A9", "export-ckpt": "A9"}
-
 
 def _add_device(p):
     p.add_argument("--device", default=None,
@@ -284,18 +288,15 @@ def cmd_train(args):
     from ..io.vcf import load_vcf_or_hdf5
     from ..io.vocab import Vocab
     from ..io.windows import Window
+    from ..interop import load_convert_meta
     from ..train.trainer import Trainer
 
-    if args.init_from:
-        _refuse("--init-from (params-only and converted checkpoints)", "A9")
     if (args.data_parallel > 1 or args.index_shards > 1
             or args.tensor_parallel > 1):
         _refuse("--data-parallel, --index-shards or --tensor-parallel > 1 "
                 "(the device mesh)", "A7")
     if args.shard_ctx == "on":
         _refuse("--shard-ctx on (the sharded retrieval context)", "A7")
-    if args.profile_dir:
-        _refuse("--profile-dir (the trainer's profiler capture)", "A10")
     device = resolve_device(args.device)
     preset = get_preset(args.preset) if args.preset else None
     base = preset or get_preset("v18_embedding_rag")
@@ -322,6 +323,19 @@ def cmd_train(args):
     train_ids = np.load(args.train_samples) if args.train_samples else None
     val_ids = np.load(args.val_samples) if args.val_samples else None
 
+    init_meta = load_convert_meta(args.init_from) if args.init_from else None
+    if init_meta is not None:
+        # Fine-tuning a converted reference checkpoint: the architecture
+        # comes from convert_meta.json (post-LN, frozen BatchNorm
+        # statistics, per-block parameters); the rest of the model config
+        # (dtypes, attention route) from the preset, and the trainer's
+        # retrieval mode follows the checkpoint (JAX cli/main.py:382-407).
+        if init_meta["vocab_size"] != vocab.size:
+            raise SystemExit(
+                f"converted checkpoint vocab_size={init_meta['vocab_size']} "
+                f"!= panel vocab {vocab.size}: population sets differ")
+        base = dataclasses.replace(base, model=dataclasses.replace(
+            base.model, **_converted_arch(init_meta)))
     # weights from the run's seed, as the JAX trainer draws its init
     model = build_model(base, vocab.size, device=device, seed=args.seed)
     trainer = Trainer(model, train_ds, _resolve_trainer_config(args, base),
@@ -329,6 +343,8 @@ def cmd_train(args):
                       val_sample_ids=val_ids)
     if args.resume_path:
         trainer.restore_checkpoint(args.resume_path)
+    elif args.init_from:
+        trainer.init_params_from(args.init_from)
     result = trainer.fit()
     print(json.dumps({"best": result["best"],
                       "best_epoch": result["best_epoch"]}))
@@ -338,23 +354,42 @@ def cmd_train(args):
 # infer / serve
 # ---------------------------------------------------------------------------
 
+def _converted_arch(meta: dict) -> dict:
+    """The ModelConfig fields a converted checkpoint fixes."""
+    return dict(dims=meta["dims"], n_layers=meta["n_layers"],
+                attn_heads=meta["attn_heads"], rag_mode=meta["rag_mode"],
+                pre_ln=meta.get("pre_ln", False),
+                pos_norm=meta.get("pos_norm", "frozen_batch"),
+                compat_double_softmax=meta.get("compat_double_softmax",
+                                               False),
+                # converted parameters are per-block and unfused
+                scan_layers=False, fused_qkv=False)
+
+
 def _load_infer_model(args):
     """The model of ``--preset`` (or the model flags) with the parameters
-    of ``--model_path``, a port checkpoint directory (``state.pt``, as
-    ``Trainer.save_checkpoint`` writes it; only its ``params`` are read).
+    of ``--model_path``, a port checkpoint directory (``state.pt``: the
+    trainer's ``ckpt_ep{N}``/``best``, of which only the ``params`` are
+    read, or a converted reference checkpoint, whose architecture comes
+    from its ``convert_meta.json`` as in JAX cli/main.py:466-495).
     Returns ``(model, rag_mode)``; shared by ``infer`` and ``serve``."""
     from ..config import ModelConfig, RunConfig, build_model, get_preset
     from ..device import resolve_device
+    from ..interop import load_convert_meta
 
     if args.data_parallel > 1:
         _refuse("--data-parallel > 1 (the serving mesh)", "A7")
-    if os.path.exists(os.path.join(args.model_path, "convert_meta.json")):
-        _refuse("--model_path of a converted reference checkpoint", "A9")
     state_path = os.path.join(args.model_path, "state.pt")
     if not os.path.exists(state_path):
-        _refuse(f"--model_path {args.model_path!r} holds no state.pt (a "
-                "params-only or orbax checkpoint)", "A9")
+        raise SystemExit(
+            f"--model_path {args.model_path!r} holds no state.pt, so it is "
+            "not a checkpoint of this package.  An orbax checkpoint of the "
+            "JAX package cannot be read without JAX: write it out as a "
+            "reference state_dict with the JAX package's export-ckpt, then "
+            "convert that file with this package's convert-ckpt (ROADMAP "
+            "Queue A, item A9)")
     device = resolve_device(args.device)
+    cmeta = load_convert_meta(args.model_path)
     if args.panel:
         from ..io.panel import PanelData
         from ..io.vocab import Vocab
@@ -364,7 +399,17 @@ def _load_infer_model(args):
     else:
         vocab_size = args.vocab_size
     rag_mode = args.rag_mode
-    if args.preset:
+    if cmeta is not None:
+        # a converted reference checkpoint: the architecture it recorded;
+        # dtypes and attention dropout from the flags
+        if rag_mode is None:
+            rag_mode = cmeta["rag_mode"]
+        vocab_size = cmeta["vocab_size"]
+        cfg = RunConfig(model=ModelConfig(
+            **{**_converted_arch(cmeta), "rag_mode": rag_mode},
+            bf16=args.bf16, score_bf16=args.score_bf16,
+            attn_dropout=0.0 if args.no_attn_dropout else None))
+    elif args.preset:
         cfg = get_preset(args.preset)
         if rag_mode is None:
             rag_mode = cfg.model.rag_mode
@@ -378,8 +423,10 @@ def _load_infer_model(args):
             attn_dropout=0.0 if args.no_attn_dropout else None,
             score_bf16=args.score_bf16))
     model = build_model(cfg, vocab_size, device=device)
-    state = torch.load(state_path, map_location=device, weights_only=True)
-    model.load_state_dict(state["params"])
+    # a trainer's checkpoint and a converted one hold the port model's
+    # state_dict alike
+    model.load_state_dict(torch.load(state_path, map_location=device,
+                                     weights_only=True)["params"])
     return model, rag_mode
 
 
@@ -482,6 +529,68 @@ def cmd_emit_vcf(args):
 
 
 # ---------------------------------------------------------------------------
+# analyze / convert-ckpt / export-ckpt
+# ---------------------------------------------------------------------------
+
+def cmd_analyze(args):
+    """Training-run analysis: the per-epoch table, the metrics plot and a
+    frequency-table audit (scripts/analyze_training_log.py /
+    plot_metrics_csv.py / test_fq.py).  The plot needs matplotlib: without
+    it the table is printed and the verb fails naming matplotlib, unless
+    ``--no-plot`` is given."""
+    from ..utils.analyze import (epoch_summary, format_table, inspect_freq,
+                                 plot_metrics)
+
+    if args.run_dir:
+        print(format_table(epoch_summary(args.run_dir)), flush=True)
+        if not args.no_plot:
+            print(f"plot: {plot_metrics(args.run_dir)}")
+    if args.freq_path:
+        print(json.dumps(inspect_freq(args.freq_path), indent=2))
+
+
+def cmd_convert_ckpt(args):
+    """Reference torch checkpoint -> a port checkpoint directory
+    (``state.pt`` + ``convert_meta.json``) for ``infer``/``serve
+    --model_path`` and ``train --init-from``.  Takes raw state_dict pickles
+    and, with ``--ref-src`` (the RAG-SNVBERT source whose classes the
+    pickle names), the reference trainer's whole-module pickles
+    (src/main/pretrain_with_val_optimized.py:524-548)."""
+    from ..interop import (convert_state_dict, load_torch_checkpoint,
+                           save_converted)
+
+    sd, heads = load_torch_checkpoint(args.torch_ckpt, ref_src=args.ref_src)
+    params, meta = convert_state_dict(sd, rag_mode=args.rag_mode)
+    meta["attn_heads"] = args.attn_heads or heads
+    if meta["attn_heads"] is None:
+        raise SystemExit("attention head count is not recoverable from a "
+                         "raw state_dict: pass --attn-heads")
+    save_converted(params, meta, args.out)
+    print(json.dumps({k: meta[k] for k in
+                      ("dims", "n_layers", "attn_heads", "vocab_size",
+                       "rag_mode")} | {"out": os.path.abspath(args.out)}))
+
+
+def cmd_export_ckpt(args):
+    """A port checkpoint (a trainer's ``ckpt_ep{N}`` or a converted one) ->
+    reference torch state_dict, the reverse of convert-ckpt: load it in the
+    reference codebase with ``model.load_state_dict(torch.load(path))``.
+    Exact for ``pos_norm="frozen_batch"`` models (converted or fine-tuned
+    reference checkpoints); GroupNorm models need ``--approx-pos-norm``
+    (the position branch's numerics differ)."""
+    from ..interop import export_state_dict, load_params_checkpoint
+
+    params = load_params_checkpoint(args.ckpt)
+    sd = export_state_dict(params, approx_pos_norm=args.approx_pos_norm)
+    # np.array keeps the 0-d res_scale tensors 0-d (np.ascontiguousarray,
+    # as the JAX package's export-ckpt writes them, makes them [1], which
+    # the reference's load_state_dict refuses)
+    torch.save({k: torch.from_numpy(np.array(v, order="C")) for k, v
+                in sd.items()}, args.out)
+    print(json.dumps({"keys": len(sd), "out": os.path.abspath(args.out)}))
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -563,7 +672,9 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--rare_threshold", type=float, default=None)
     pt.add_argument("--resume_path", default=None)
     pt.add_argument("--init-from", dest="init_from", default=None,
-                    help="not ported yet (Queue A, A9)")
+                    help="warm-start the weights from a checkpoint dir (a "
+                         "converted reference checkpoint or another run's "
+                         "ckpt_ep*) with a fresh optimizer")
     pt.add_argument("--output_path", required=True)
     pt.add_argument("--log_freq", type=int, default=500)
     pt.add_argument("--seed", type=int, default=42)
@@ -600,7 +711,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["level", "cosine", "linear", "exponential"],
                     default="level")
     pt.add_argument("--profile-dir", dest="profile_dir", default=None,
-                    help="not ported yet (Queue A, A10)")
+                    help="write a torch.profiler Chrome trace of "
+                         "--profile-steps steady micro-steps of the first "
+                         "epoch here")
     pt.add_argument("--profile-steps", dest="profile_steps", type=int,
                     default=4)
     _add_device(pt)
@@ -610,8 +723,9 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--refpanel_path", required=True)
         p.add_argument("--freq_path", required=True)
         p.add_argument("--model_path", required=True,
-                       help="a checkpoint dir of the port's trainer "
-                            "(ckpt_ep{N} or best: state.pt)")
+                       help="a checkpoint dir of the port (the trainer's "
+                            "ckpt_ep{N} or best, or convert-ckpt's output: "
+                            "state.pt)")
         p.add_argument("--vocab_size", type=int, default=12,
                        help="used only when --panel is not given")
         p.add_argument("--panel", default=None,
@@ -666,17 +780,49 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma-separated sample names")
     pe.set_defaults(fn=cmd_emit_vcf)
 
-    for verb, item in NOT_PORTED.items():
-        sp = sub.add_parser(verb, help=f"not ported yet (Queue A, {item})")
-        sp.set_defaults(fn=lambda args, v=verb, i=item: _refuse(v, i))
+    pa = sub.add_parser("analyze")
+    pa.add_argument("--run_dir", default=None)
+    pa.add_argument("--freq_path", default=None)
+    pa.add_argument("--no-plot", dest="no_plot", action="store_true",
+                    help="print the table without drawing metrics.png "
+                         "(the plot needs matplotlib)")
+    pa.set_defaults(fn=cmd_analyze)
+
+    pc = sub.add_parser("convert-ckpt", help="convert a trained reference "
+                        "(torch) checkpoint for this package")
+    pc.add_argument("--torch_ckpt", required=True,
+                    help="reference checkpoint (whole-module pickle, e.g. "
+                         "rag_bert.model.ep12, or a raw state_dict)")
+    pc.add_argument("--out", required=True, help="output checkpoint dir "
+                    "(usable as infer/serve --model_path)")
+    pc.add_argument("--ref-src", dest="ref_src", default=None,
+                    help="RAG-SNVBERT repo root, required to unpickle "
+                         "whole-module checkpoints")
+    pc.add_argument("--attn-heads", dest="attn_heads", type=int, default=None,
+                    help="needed only for raw state_dicts (not inferable "
+                         "from tensor shapes)")
+    pc.add_argument("--rag-mode", dest="rag_mode", default=None,
+                    choices=["embedding", "token", "none"],
+                    help="override auto-detection (V17 token checkpoints "
+                         "share V18's parameter surface: pass 'token')")
+    pc.set_defaults(fn=cmd_convert_ckpt)
+
+    px = sub.add_parser("export-ckpt", help="export a checkpoint as a "
+                        "reference (torch) state_dict")
+    px.add_argument("--ckpt", required=True,
+                    help="trainer checkpoint dir or converted checkpoint dir")
+    px.add_argument("--out", required=True, help="output .pt path")
+    px.add_argument("--approx-pos-norm", dest="approx_pos_norm",
+                    action="store_true",
+                    help="allow exporting GroupNorm-trained models with "
+                         "identity-stats BatchNorm (numerics differ in the "
+                         "position branch)")
+    px.set_defaults(fn=cmd_export_ckpt)
     return p
 
 
 def main(argv=None):
-    parser = build_parser()
-    args, rest = parser.parse_known_args(argv)
-    if rest and args.cmd not in NOT_PORTED:   # those exit with their item
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

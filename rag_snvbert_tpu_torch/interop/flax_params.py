@@ -15,6 +15,10 @@ Scalars (``res_scale``) stay scalars.  A tree of a ``scan_layers=True``
 model keeps the encoder's blocks at ``encoder/blocks/...`` with a leading
 ``[n_layers]`` axis (flax ``nn.scan``); they are unstacked leaf by leaf
 into ``encoder/block_{i}/...`` first.  A leftover or missing leaf raises.
+``flax_params_of`` is the inverse: a port model (or its ``state_dict``) ->
+the flax-layout numpy tree, by the same rules read backwards, so converted
+reference checkpoints go into the port and back out through one set of
+rules.
 
 ``load_optax_adam_state`` carries an optax Adam state (``mu``, ``nu``,
 ``count``, and the ``MultiSteps`` fields around it) into the port's
@@ -77,6 +81,40 @@ def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
 
 def _torch_key(path: tuple) -> str:
     return ".".join(path[:-1] + (_RENAME.get(path[-1], path[-1]),))
+
+
+def leaf_shapes(tree: Mapping) -> dict[str, tuple]:
+    """``{"a/b/leaf": shape}`` of a flax-layout tree (scanned blocks
+    unstacked)."""
+    return {"/".join(p): tuple(v.shape) for p, v in _leaves(tree).items()}
+
+
+def flax_params_of(model_or_state) -> dict:
+    """The flax-layout numpy tree (float32) of a port model or of its
+    ``state_dict``: the inverse of ``load_flax_params``.  A ``weight`` is
+    an ``Embed``'s ``embedding``, a norm's ``scale`` (1-D) or a Dense/Conv
+    ``kernel`` in the flax layout; buffers (``FrozenBatchNorm``'s
+    ``mean``/``var``) are leaves, as they are parameters in flax."""
+    state = (model_or_state.state_dict()
+             if isinstance(model_or_state, nn.Module) else model_or_state)
+    tree: dict = {}
+    for key, val in state.items():
+        *mods, leaf = key.split(".")
+        arr = (val.detach().float().cpu().numpy()
+               if isinstance(val, torch.Tensor) else np.asarray(val))
+        if leaf == "weight":
+            if mods[-1].startswith("Embed"):
+                leaf = "embedding"
+            elif arr.ndim == 1:
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.array(arr, order="C")   # 0-d stays 0-d
+    return tree
 
 
 @torch.no_grad()

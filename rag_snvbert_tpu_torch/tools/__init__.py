@@ -1,2 +1,3 @@
-"""Measurement scripts for the card, run as ``python -m
+"""Measurement and quality scripts (the card's kernel A/B and probes, the
+convergence run, its ceilings and trace summary), run as ``python -m
 rag_snvbert_tpu_torch.tools.<name>``; nothing here runs at import time."""

@@ -95,35 +95,59 @@ class Optimizer:
         grads = self.grads()
         if self.acc is not None:
             n = self.mini_step
-            for a, g in zip(self.acc, grads):
-                a.copy_(a + (g - a) / (n + 1))
+            # acc + (g - acc) / (n + 1), a float32 operation at a time
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, self._scalar(n + 1))
+            torch._foreach_add_(self.acc, delta)
             if n < self.accum_steps - 1:
                 self.mini_step = n + 1
                 return False
             grads = self.acc
         self._update(grads)
         if self.acc is not None:
-            for a in self.acc:
-                a.zero_()
+            torch._foreach_zero_(self.acc)
             self.mini_step = 0
         return True
 
+    def _scalar(self, value: float) -> torch.Tensor:
+        """``value`` as a 0-d float32 tensor on the parameters' device, made
+        by a fill (no copy from the host, so no wait for the stream)."""
+        return torch.full((), value, dtype=torch.float32,
+                          device=self.params[0].device)
+
     def _update(self, grads: list[torch.Tensor]) -> None:
+        """One clipped Adam update, each step one float32 operation over
+        every tensor (``torch._foreach_*``: a few launches an update where
+        a loop over the tensors makes ~20 each), in optax's order:
+        ``g / |g| * c``, ``(1 - b1) g + b1 mu``, ``(1 - b2) g^2 + b2 nu``,
+        ``p - lr (mu / bc1) / (sqrt(nu / bc2) + eps)``.  Every divisor here
+        and in the accumulation is a 0-d float32 tensor on the parameters'
+        device, so the division is a true one as on the CPU: CUDA divides
+        by a Python scalar as a product with its reciprocal, which rounds
+        differently.  The clip branch is chosen on the device: below the
+        limit the gradients are divided and multiplied by 1, which leaves
+        them as they are, so nothing is read back to the host."""
         norm = global_norm(grads)
-        below = norm < self.clip_norm
         self.last_lr = self.schedule(self.count)
         self.count += 1
         f32 = dict(dtype=torch.float32)
-        bc1 = 1 - torch.tensor(self.b1, **f32) ** self.count
-        bc2 = 1 - torch.tensor(self.b2, **f32) ** self.count
-        neg_lr = -self.last_lr
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            g = torch.where(below, g, g / norm * self.clip_norm)
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * torch.square(g) + self.b2 * nu)
-            u = (mu / bc1.to(mu.device)) / (
-                torch.sqrt(nu / bc2.to(nu.device)) + self.eps)
-            p.copy_(p + neg_lr * u)
+        bc1 = self._scalar((1 - torch.tensor(self.b1, **f32)
+                            ** self.count).item())
+        bc2 = self._scalar((1 - torch.tensor(self.b2, **f32)
+                            ** self.count).item())
+        below, one = norm < self.clip_norm, self._scalar(1.0)
+        grads = torch._foreach_mul(
+            torch._foreach_div(grads, torch.where(below, one, norm)),
+            torch.where(below, one, self._scalar(self.clip_norm)))
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - self.b1))
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1 - self.b2))
+        den = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
+        torch._foreach_add_(self.params, torch._foreach_mul(u, -self.last_lr))
 
     def state_dict(self) -> dict:
         def named(ts):

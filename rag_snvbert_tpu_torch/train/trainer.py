@@ -15,7 +15,11 @@ Port of rag_snvbert_tpu/train/trainer.py (:41-645).  Reference parity
     (``torch.save``) with the parameters, the whole optimizer state (the
     accumulation buffers included), step, epoch, curriculum level and the
     early-stop fields.  The retrieval context is derived state and is not
-    checkpointed (train_embedding_rag.py:378-387).
+    checkpointed (train_embedding_rag.py:378-387);
+  - ``init_params_from``: a warm start from another run's or a converted
+    reference checkpoint's weights, with a fresh optimizer;
+  - ``profile_dir``: a ``torch.profiler`` Chrome trace of ``profile_steps``
+    steady micro-steps of the first epoch trained (JAX trainer.py:418-433).
 
 The trainer runs wherever the model's parameters are (``build_model`` puts
 them on the card unless given ``device="cpu"``).  Batches are assembled on
@@ -40,6 +44,7 @@ import torch
 from ..data import masking
 from ..data.pipeline import WindowDataset
 from ..data.prefetch import prefetch_iter
+from ..utils.timing import start_trace, stop_trace
 from . import metrics as metrics_lib
 from .retrieval import (build_token_window_ctx, check_int8_vocab,
                         encode_window_refs)
@@ -54,8 +59,8 @@ class TrainerConfig:
     from a torch generator per step), ``ctx_merge`` (sharded context only),
     ``steps_per_dispatch`` (a TPU dispatch device: the port runs the steps
     one by one, with the same semantics), ``async_checkpoints`` (saves are
-    synchronous).  ``shard_ctx=True`` and ``profile_dir`` raise: their
-    slices are not ported yet."""
+    synchronous).  ``shard_ctx=True`` raises: its slice is not ported
+    yet."""
 
     epochs: int = 20
     batch_size: int = 24
@@ -101,7 +106,11 @@ class TrainerConfig:
     steps_per_dispatch: int = 1        # no effect here
     async_checkpoints: bool = True     # no effect here: saves are sync
     keep_checkpoints: int = 3          # newest N epoch dirs (+ best); 0 all
-    profile_dir: str | None = None     # not ported: raises
+    # torch.profiler capture: a Chrome trace (host operations and, on the
+    # card, kernels) of ``profile_steps`` steady micro-steps after the first
+    # of the first epoch trained, written under ``profile_dir``
+    # (tools/summarize_trace.py reads it).
+    profile_dir: str | None = None
     profile_steps: int = 4
 
 
@@ -184,10 +193,6 @@ class Trainer:
                 "Queue A 7)")
         if cfg.rag_mode not in ("embedding", "token", "none"):
             raise ValueError(f"unknown rag_mode {cfg.rag_mode!r}")
-        if cfg.profile_dir:
-            raise NotImplementedError(
-                "profile_dir: the port has no trainer profiler capture yet; "
-                "chip_smoke.py --profile traces two training micro-steps")
         self.model = model
         self.device = next(model.parameters()).device
         if cfg.rag_mode == "token" and self.device.type == "cuda":
@@ -202,6 +207,7 @@ class Trainer:
         self.level = 0
         self.step = 0                      # micro-steps taken (JAX state.step)
         self.step_marks: list | None = None  # see record_step_times
+        self.trace_path: str | None = None   # see profile_dir
         self.start_epoch = 0
         self.stopper = EarlyStopping(cfg.patience, cfg.min_delta)
         self.step_cfg = StepConfig(
@@ -276,6 +282,10 @@ class Trainer:
         n_batches = 0
         t0 = time.time()
         self.step_marks = [] if cfg.record_step_times else None
+        want_prof = bool(train and cfg.profile_dir
+                         and epoch == self.start_epoch)
+        prof = None
+        prof_start_n = 0
         current_wid = -1
         ctx = None
         prefetched: dict[int, Any] = {}
@@ -312,14 +322,25 @@ class Trainer:
             n_batches += 1
             if self.step_marks is not None:
                 self.step_marks.append(time.time())
+            if want_prof and prof is None:
+                # after the first micro-step (kernel loads, allocator
+                # warm-up): the next profile_steps are steady ones
+                prof, prof_start_n = start_trace(self.device), n_batches
+            elif want_prof and n_batches - prof_start_n >= cfg.profile_steps:
+                self.trace_path = stop_trace(prof, cfg.profile_dir,
+                                             self.device)
+                want_prof = False
             if train and n_batches % cfg.log_freq == 0:
                 self._log({"event": "step", "epoch": epoch,
                            "batch": n_batches,
                            "loss": float(stats["loss"])})
+        if want_prof and prof is not None:      # a short epoch: close out
+            self.trace_path = stop_trace(prof, cfg.profile_dir, self.device)
         host = _to_host(acc)                 # one copy to the host per epoch
         summary = metrics_lib.summarize(host["counters"])
+        # the JAX package's column order (its pytree sorts the dict keys)
         summary.update({k: float(v) / max(n_batches, 1)
-                        for k, v in host["totals"].items()})
+                        for k, v in sorted(host["totals"].items())})
         summary["epoch_seconds"] = time.time() - t0
         summary["n_batches"] = n_batches
         return summary
@@ -430,13 +451,27 @@ class Trainer:
                          self.cfg.max_level)
 
     def init_params_from(self, path: str) -> None:
-        """Warm start from a params-only checkpoint: waits for the port's
-        checkpoint converter (ROADMAP Queue A, item A9)."""
-        raise NotImplementedError(
-            "init_params_from: params-only checkpoints come with the rest "
-            "of the port's CLI and checkpoint interop (ROADMAP Queue A, "
-            "item A9); load a flax params tree with "
-            "interop.load_flax_params instead")
+        """Warm-start the weights from a checkpoint directory (a converted
+        reference checkpoint from ``convert-ckpt``, or another run's
+        ``ckpt_ep{N}``) while the optimizer, epoch and curriculum stay
+        fresh: fine-tuning, where ``restore_checkpoint`` resumes exactly
+        (JAX trainer.py:602-625).  The tree must match this trainer's model;
+        any difference raises with the missing, extra and mis-shaped
+        leaves.  ``FrozenBatchNorm`` statistics load into their buffers."""
+        from ..interop import (flax_params_of, leaf_shapes, load_flax_params,
+                               load_params_checkpoint)
+
+        loaded = load_params_checkpoint(path)
+        cur, new = leaf_shapes(flax_params_of(self.model)), leaf_shapes(loaded)
+        if cur != new:
+            missing = sorted(set(cur) - set(new))[:5]
+            extra = sorted(set(new) - set(cur))[:5]
+            shapes = sorted(k for k in cur if k in new
+                            and cur[k] != new[k])[:5]
+            raise ValueError(
+                f"checkpoint params do not match the model: "
+                f"missing={missing} extra={extra} shape_mismatch={shapes}")
+        load_flax_params(self.model, loaded)
 
     # ---- logging ----
 

@@ -214,37 +214,29 @@ def test_no_rag_preset_trains_and_infers(files, capsys, tmp_path):
     assert read_vcf(out).n_variants == files["bundle"].ref.n_variants
 
 
-def _converted(tmp_path):
-    d = tmp_path / "converted"
-    d.mkdir()
-    (d / "convert_meta.json").write_text("{}")
-    return str(d)
-
-
 def _orbax(tmp_path):
     d = tmp_path / "orbax"
     d.mkdir()
     return str(d)
 
 
+# Numbered as the cases were before --init-from, --profile-dir and
+# converted checkpoints were ported (cases 0, 5, 8 and 9), so each case
+# keeps its id.  An orbax checkpoint of the JAX package stays refused: its
+# message names the route through the JAX package's export-ckpt.
 REFUSED = [
-    ("train", ["--init-from", "ckpt"], "A9"),
-    ("train", ["--data-parallel", "2"], "A7"),
-    ("train", ["--index-shards", "2"], "A7"),
-    ("train", ["--tensor-parallel", "2"], "A7"),
-    ("train", ["--shard-ctx", "on"], "A7"),
-    ("train", ["--profile-dir", "prof"], "A10"),
-    ("infer", ["--data-parallel", "2"], "A7"),
-    ("serve", ["--data-parallel", "2"], "A7"),
-    ("infer", _converted, "A9"),
-    ("serve", _converted, "A9"),
-    ("infer", _orbax, "A9"),
+    (1, "train", ["--data-parallel", "2"], "A7"),
+    (2, "train", ["--index-shards", "2"], "A7"),
+    (3, "train", ["--tensor-parallel", "2"], "A7"),
+    (4, "train", ["--shard-ctx", "on"], "A7"),
+    (6, "infer", ["--data-parallel", "2"], "A7"),
+    (7, "serve", ["--data-parallel", "2"], "A7"),
+    (10, "infer", _orbax, "A9"),
 ]
 
 
-@pytest.mark.parametrize("verb,extra,item", REFUSED,
-                         ids=[f"{v}-{i}-{n}" for n, (v, _, i)
-                              in enumerate(REFUSED)])
+@pytest.mark.parametrize("verb,extra,item", [r[1:] for r in REFUSED],
+                         ids=[f"{v}-{i}-{n}" for n, v, _, i in REFUSED])
 def test_flags_not_ported_name_their_roadmap_item(files, tmp_path, verb,
                                                   extra, item):
     if verb == "train":
@@ -257,6 +249,9 @@ def test_flags_not_ported_name_their_roadmap_item(files, tmp_path, verb,
                              *(() if callable(extra) else extra))]
     with pytest.raises(SystemExit, match=f"Queue A, item {item}\\)"):
         main(argv)
+    if callable(extra):           # the orbax case names its route
+        with pytest.raises(SystemExit, match="export-ckpt, then convert"):
+            main(argv)
     assert not os.path.exists(tmp_path / "x.vcf")
 
 

@@ -123,3 +123,24 @@ def test_frozen_batch_norm_model_starts_from_identity_statistics():
                     (bn.var, 1.0)):
         assert torch.equal(t.detach(), torch.full_like(t, want))
     assert all(torch.isfinite(p).all() for p in model.state_dict().values())
+
+
+def test_port_imports_no_pandas():
+    """The card's machine has no pandas: no module of the port, the
+    analysis included, may need it."""
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('pandas' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+    names = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names.append(node.module or "")
+    assert not [n for n in names if n.split(".")[0] == "pandas"]

@@ -169,12 +169,6 @@ def test_prepare_data_writes_the_jax_files(files):
             assert open(a).read() == open(b).read(), name
 
 
-@pytest.mark.parametrize("verb", ["analyze", "convert-ckpt", "export-ckpt"])
-def test_verbs_not_ported_name_their_roadmap_item(verb):
-    with pytest.raises(SystemExit, match="Queue A, item A9"):
-        tmain([verb, "--anything", "x"])
-
-
 def test_index_shards_names_its_roadmap_item(dbs, files):
     with pytest.raises(SystemExit, match="Queue A, item A7"):
         tmain(["query", "--vcf", files["tgt"], "--db", dbs["f32", True],

@@ -374,8 +374,12 @@ def _assert_params_equal(tm, params):
                                    rtol=2 ** -22, atol=1e-9)
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_optimizer_matches_optax(accum):
+def _optimizer_against_optax(accum: int, grad_scale: float,
+                             clipped: bool) -> None:
+    """From a state with non-zero moments, ``accum`` micro-steps of the
+    port's optimizer and of optax on the same gradients: equal parameters
+    after each.  ``clipped``: every micro-gradient's global norm is above
+    10 (the clip at 1.0 binds), else below 1.0."""
     import optax
 
     _, _, vocab = _datasets()
@@ -394,12 +398,10 @@ def test_optimizer_matches_optax(accum):
     load_optax_adam_state(opt, state)
     assert opt.count == 1 and opt.mini_step == 0
 
-    # Gradients of global norm ~300 >> clip 1.0: the clip binds.
     for micro in range(accum):
-        grads = _grads_like(params, rng, 0.3)
-        norm = float(np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
-                                 for g in jax.tree.leaves(grads))))
-        assert norm > 10.0
+        grads = _grads_like(params, rng, grad_scale)
+        norm = _global_norm(grads)
+        assert norm > 10.0 if clipped else norm < 1.0
         upd, state = update(grads, state, params)
         params = jax.tree.map(np.asarray, optax.apply_updates(params, upd))
         _set_grads(tm, grads)
@@ -412,6 +414,25 @@ def test_optimizer_matches_optax(accum):
     assert opt.count == 2
     if accum > 1:
         assert all(float(a.abs().max()) == 0.0 for a in opt.acc)
+
+
+def _global_norm(grads) -> float:
+    return float(np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
+                             for g in jax.tree.leaves(grads))))
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_optimizer_matches_optax(accum):
+    # Gradients of global norm ~300 >> clip 1.0: the clip binds.
+    _optimizer_against_optax(accum, 0.3, clipped=True)
+
+
+@pytest.mark.parametrize("accum,grad_scale", [(1, 1e-5), (3, 0.3)])
+def test_optimizer_matches_optax_below_clip_and_over_three_micro_steps(
+        accum, grad_scale):
+    """The unclipped branch (global norm below 1.0, chosen on the device),
+    and an average over three micro-steps (a division by 3)."""
+    _optimizer_against_optax(accum, grad_scale, clipped=grad_scale > 0.1)
 
 
 # ---- the trainer ----
@@ -497,7 +518,3 @@ def test_trainer_paths_left_for_later_slices_raise(tmp_path):
         _trainer(tmp_path, 1, shard_ctx=True)
     with pytest.raises(ValueError, match="rag_mode"):
         _trainer(tmp_path, 1, rag_mode="tokens")
-    with pytest.raises(NotImplementedError, match="profile"):
-        _trainer(tmp_path, 1, profile_dir=str(tmp_path / "p"))
-    with pytest.raises(NotImplementedError, match="CLI"):
-        _trainer(tmp_path, 1).init_params_from(str(tmp_path))
