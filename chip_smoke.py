@@ -57,6 +57,7 @@ the package.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -2430,6 +2431,546 @@ def phase_token_training(profile: bool = False) -> dict[str, int]:
     return counts
 
 
+# The distributed phase.  The machine has one card: NCCL refuses two ranks
+# on one device, so NCCL is proven in a one-rank world (bit-identical to
+# the run without a mesh, both fits under torch's deterministic
+# algorithms: torch's CUDA embedding backward sums a token's rows in an
+# order that varies from run to run, so two fits without a mesh differ
+# in the token embedding's last bits), and the shard logic runs in gloo
+# worlds whose ranks share the card (gloo stages a CUDA tensor through
+# host memory for all_gather and point-to-point, parallel/comm.py).
+# Tolerances: dp2 x idx2 training against the single-process fit, both
+# bf16 on the card with rows batched differently, by tools/mesh_check.py's
+# compare_fits (loss, parameters, each micro-step's gradient norm and the
+# parameter change), with a control run without the gradient sum that
+# must fail it; tp3 serving and dp2 imputation within the serving bands
+# (PROB_MEAN_TOL, PROB_MAX_TOL: bf16 roundings; tp3 sums its row-parallel
+# partial products in bf16); the sharded genotype index exactly (integer
+# distances, ties to the lower id on both sides).
+DIST_DIR = "runs/chip_smoke_dist"
+
+
+def _dist_train_rank(rank: int, out_dir: str, single: dict) -> dict:
+    """One rank of the dp2 x idx2 world: Trainer.fit held to the
+    single-process ``single``; one batch's sharded l2_topk ids against the
+    single-process kernel over the whole context (after the launch counts
+    are read); then the control, a fit without the gradient sum."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.index.sharded import sharded_search
+    from rag_snvbert_tpu_torch.ops.l2_topk import l2_topk
+    from rag_snvbert_tpu_torch.parallel.mesh import make_mesh
+    from rag_snvbert_tpu_torch.tools.mesh_check import (
+        allreduce_ms, compare_fits, fit, make_trainer)
+    from rag_snvbert_tpu_torch.train.retrieval import encode_window_refs
+    from rag_snvbert_tpu_torch.train.step import expand_packed
+
+    mesh = make_mesh(2, 2, 1)
+    trainer, ds = make_trainer(mesh, out_dir)
+    ops.reset_launches()
+    got = fit(trainer)
+    out = {"launches": ops.launch_counts(), "shard_ctx": trainer.shard_ctx,
+           "loss": got["loss"], "wall_s": got["wall_s"],
+           "step_ms": got["step_ms"], "cmp": compare_fits(got, single),
+           "allreduce_ms": allreduce_ms(trainer)}
+    del got
+    # ids: this data rank's rows of window 0's first batch, kernel per
+    # shard + merge, against the kernel over the whole 2048-row context
+    meta = ds.windows[0]
+    d = mesh.get_local_rank("data")
+    batch = expand_packed(trainer._put_batch(ds.make_batch(
+        meta, np.arange(12 * d, 12 * d + 12), 0, 0, packed=True)))
+    model = trainer.model.eval()
+    with torch.no_grad():
+        ctx = trainer._window_ctx(ds, meta, 0, 0)
+        toks = torch.cat([batch["hap_1"], batch["hap_2"]])
+        q = model.embed(toks, torch.cat([batch["af"], batch["af"]]))
+        qf = q.to(torch.bfloat16).reshape(q.shape[0], -1)
+        rf = ctx.ref_emb_search.reshape(ctx.rows_per_shard, -1)
+        _, ids = sharded_search(
+            lambda qq, k: l2_topk(qq, rf, ctx.ref_norms, k), qf, 1,
+            ctx.rows_per_shard, ctx.shard, ctx.group)
+        toks_all, af, valid = (torch.from_numpy(x).cuda() for x in
+                               ds.window_ref_tokens(meta, pad_haps_to=2048))
+        full = encode_window_refs(
+            model.embed, toks_all.long(), af,
+            torch.from_numpy(ds.window_mask(meta, 0, 0)).cuda(), valid=valid)
+        _, one = l2_topk(qf, full.ref_emb_search.reshape(2048, -1),
+                         full.ref_norms, 1)
+        out["ids"] = _exact_nearest(q, full, ids[:, 0].int(),
+                                    one[:, 0].int())
+    del trainer, model, ctx, full
+    torch.cuda.empty_cache()
+    control = make_trainer(mesh, os.path.join(out_dir, "control"))[0]
+    out["control"] = compare_fits(fit(control, sum_gradients=False), single)
+    return out
+
+
+def _dist_serve_rank(rank: int, targets: list) -> dict:
+    """One rank of the tp3 world: the serving bundle through
+    ImputationService (rank 0 the front end, the others following)."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.infer.serve import ImputationService
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 1, 3)
+    bundle = make_bundle(n_train_samples=64, n_ref_samples=1004,
+                         n_sites=3 * 1020, n_windows=3, seed=17)
+    cfg = PRESETS["tpu_default"]
+    svc = ImputationService.create(build_model(cfg, bundle.vocab.size,
+                                               seed=0),
+                                   bundle.ref, bundle.freq, batch_size=32,
+                                   mesh=mesh)
+    heads = svc.imputer.model.bert.encoder.block_0.attention.local_heads
+    ops.reset_launches()
+    out = {"heads": heads, "sec": []}
+    if rank == 0:
+        out["results"] = []
+        for target in targets:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = svc.handle_target(target)
+            torch.cuda.synchronize()
+            out["sec"].append(time.perf_counter() - t)
+            out["results"].append({f: getattr(res, f) for f in
+                                   ("hap1_prob", "hap2_prob", "gt_prob")})
+        svc.release()
+    else:
+        out["followed"] = svc.follow()
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def _dist_index_rank(rank: int, target) -> dict:
+    """One rank of the two-rank world: dp2 imputation of the serving
+    bundle, then the genotype index sharded over both ranks in four
+    storages, each searched with both merges."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.index.sharded import ShardedFlatL2Index
+    from rag_snvbert_tpu_torch.infer.imputer import Imputer
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.parallel.mesh import make_mesh
+    from rag_snvbert_tpu_torch.tools.mesh_check import STORAGES, index_bits
+
+    out = {}
+    bundle = make_bundle(n_train_samples=64, n_ref_samples=1004,
+                         n_sites=3 * 1020, n_windows=3, seed=17)
+    imp = Imputer(build_model(PRESETS["tpu_default"], bundle.vocab.size,
+                              seed=0), bundle.ref, bundle.freq,
+                  batch_size=32, mesh=make_mesh(2, 1, 1))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = imp.impute(target)
+    torch.cuda.synchronize()
+    out["infer_sec"] = time.perf_counter() - t
+    out["infer"] = {f: getattr(res, f) for f in ("hap1_prob", "hap2_prob",
+                                                 "gt_prob")}
+    del imp
+    torch.cuda.empty_cache()
+    mesh = make_mesh(1, 2, 1)
+    b, n, d = FLOAT_INDEX
+    bits, q = index_bits(n, d, b, "cuda")
+    out["search"] = {}
+    for name, kw, _ in STORAGES:
+        idx = ShardedFlatL2Index.build(mesh, bits, **kw)
+        for merge in ("all_gather", "ring"):
+            idx.search(q, 10, merge=merge)        # warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            v, i = idx.search(q, 10, merge=merge)
+            torch.cuda.synchronize()
+            out["search"][name, merge] = ((time.perf_counter() - t) * 1e3,
+                                          v.cpu(), i.cpu())
+        del idx
+        torch.cuda.empty_cache()
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def _spawn(fn, world: int, args: tuple, what: str) -> list:
+    from rag_snvbert_tpu_torch.parallel.launch import spawn
+
+    t = time.perf_counter()
+    try:
+        runs = spawn(fn, world, args, backend="gloo")
+    except Exception as e:       # a rank failed a check or raised
+        fail(f"{what}: a rank failed ({type(e).__name__}: {e})")
+    print(f"{what}: {time.perf_counter() - t:.1f} s wall ({world} gloo "
+          f"ranks sharing the card, start-up included); launches per rank "
+          f"{[r['launches'] for r in runs]}")
+    return runs
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms (and cuDNN's) for the block: the
+    CUDA embedding backward then sums in a fixed order.  Their cuBLAS
+    calls need CUBLAS_WORKSPACE_CONFIG, which main() sets."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_distributed(profile: bool = False) -> dict[str, int]:
+    """The scale-out path (parallel/, index/sharded.py,
+    train/sharded_retrieval.py): a one-rank NCCL world against the runs
+    without a mesh, then gloo worlds of ranks sharing the card: dp2 x idx2
+    training, tp3 serving, dp2 imputation and the two-shard genotype
+    index.  Returns the launches of every rank's mesh run summed (the
+    single-process references are not counted)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.index import FlatL2Index
+    from rag_snvbert_tpu_torch.index.sharded import ShardedFlatL2Index
+    from rag_snvbert_tpu_torch.infer.serve import ImputationService
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.parallel.mesh import (init_distributed,
+                                                     make_mesh)
+    from rag_snvbert_tpu_torch.tools.mesh_check import (
+        DELTA_TOL, NORM_TOL, STORAGES, fit, fit_failures, index_bits,
+        make_trainer)
+
+    m = PRESETS["tpu_default"].model
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    total: dict[str, int] = {}
+
+    # 1. one-rank NCCL world: the mesh run equals the run without one
+    t0 = time.perf_counter()
+    trainer = make_trainer(None, os.path.join(DIST_DIR, "single"))[0]
+    emb = trainer.model.bert.embedding.Embed_0
+    seen: dict = {}
+
+    def grab(mod, inp, out):            # the fit's first lookup with grad
+        if out.requires_grad and not seen:
+            seen["ids"] = inp[0].detach().clone()
+            out.register_hook(lambda g: seen.setdefault(
+                "grad", g.detach().float().clone()))
+
+    hook = emb.register_forward_hook(grab)
+    with _deterministic():
+        single = fit(trainer)
+    hook.remove()
+    # why: torch's embedding backward on that lookup, rerun 20 times
+    same = {}
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det)
+        outs = [torch.ops.aten.embedding_dense_backward(
+            seen["grad"], seen["ids"], emb.num_embeddings, -1, False)
+            for _ in range(20)]
+        same[det] = sum(torch.equal(o, outs[0]) for o in outs)
+    torch.use_deterministic_algorithms(False)
+    print(f"torch's CUDA embedding backward on a micro-step's lookup "
+          f"({list(seen['ids'].shape)} ids, {emb.num_embeddings} rows): 20 "
+          f"reruns equal to the first in {same[False]} of 20, under "
+          f"deterministic algorithms in {same[True]} of 20")
+    check(same[True] == 20, "the embedding backward is not reproducible "
+          "under deterministic algorithms")
+    del trainer, emb, seen
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", rank=0, world_size=1,
+                         init_method=f"file://{tmp}/rendezvous")
+        try:
+            mesh = make_mesh(1, 1, 1)
+            ops.reset_launches()
+            with _deterministic():
+                nccl = fit(make_trainer(mesh, os.path.join(DIST_DIR,
+                                                           "nccl"))[0])
+            bits, q = index_bits(131072, 2040, 1024, "cuda")
+            sidx = ShardedFlatL2Index.build(mesh, bits,
+                                            dtype=torch.bfloat16)
+            got = sidx.search(q, 10)
+            _add(total, ops.launch_counts())
+            nccl_counts = ops.launch_counts()
+            want = FlatL2Index.build(bits, dtype=torch.bfloat16).search(
+                q, 10, use_pallas=True)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    differ = [k for k, v in single["params"].items()
+              if not torch.equal(nccl["params"][k], v)]
+    same_fit = nccl["loss"] == single["loss"] and not differ
+    # the summed gradients are views into one flat buffer, whose other
+    # alignment may change a norm's reduction order: ulps, not bits
+    norm_rel = max(abs(a - b) / b for a, b in zip(nccl["grad_norms"],
+                                                  single["grad_norms"]))
+    same_search = torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1])
+    print(f"one-rank {backend} world: Trainer(mesh=1x1x1) 4 micro-steps at "
+          f"tpu_default loss {nccl['loss']:.6f} vs {single['loss']:.6f} "
+          f"without a mesh, loss and parameters bit-identical {same_fit}, "
+          f"micro-step gradient norms within {norm_rel:.1e}; "
+          f"ShardedFlatL2Index "
+          f"(bf16, [1024] x [131072, 2040]) bit-identical to FlatL2Index "
+          f"{same_search}; launches {nccl_counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(backend == "nccl" and same_fit and same_search
+          and len(nccl["grad_norms"]) == len(single["grad_norms"]) == 4
+          and norm_rel <= 1e-6,
+          f"the one-rank NCCL world differs from the run without a mesh: "
+          f"backend {backend}, loss {nccl['loss']!r} vs {single['loss']!r}, "
+          f"{len(differ)} parameter tensors differ {differ[:4]}, gradient "
+          f"norms {nccl['grad_norms']} vs {single['grad_norms']}, search "
+          f"bit-identical {same_search}")
+    del bits, q, sidx, got, want
+    torch.cuda.empty_cache()
+
+    # 2a. dp2 x idx2 training, 4 gloo ranks on the card
+    runs = _spawn(_dist_train_rank, 4,
+                  (os.path.join(DIST_DIR, "dp2xidx2"), single),
+                  "dp2 x idx2 training (and its control)")
+    micro = 4
+    per_rank = {"attention": m.n_layers * micro,
+                "attention_bwd": m.n_layers * micro, "l2_topk": micro,
+                "l2_topk_rf": 0, "l2_topk_float": 0}
+    for r in runs:
+        _add(total, r["launches"])
+        check(r["shard_ctx"] and r["launches"] == per_rank,
+              f"dp2 x idx2 rank launches {r['launches']}, want {per_rank}")
+        check(not fit_failures(r["cmp"]),
+              f"dp2 x idx2 fit: {fit_failures(r['cmp'])}")
+        check(r["control"]["norm_rel"] > NORM_TOL
+              and r["control"]["delta_rel"] > DELTA_TOL,
+              f"the control without the gradient sum passes the dp2 x idx2 "
+              f"checks: {r['control']}")
+        ids = r["ids"]
+        check(ids["kernel_excess"] <= INTEROP_TIE_REL,
+              f"sharded l2_topk picks off the nearest: {ids}")
+    st = {k: [r["ids"][k] for r in runs] for k in ("differ", "queries")}
+
+    def worst(key: str, what: str = "cmp") -> str:
+        return f"{max(r[what][key] for r in runs):.2e}"
+
+    med = statistics.median
+    print(f"dp2 x idx2: loss {[round(r['loss'], 6) for r in runs]} vs "
+          f"{single['loss']:.6f} single-process; worst rank: loss rel "
+          f"{worst('loss_rel')}, params rel {worst('param_rel')}, micro-step "
+          f"gradient norm rel {worst('norm_rel')} (tol {NORM_TOL}; rank 0 "
+          f"by micro-step {[float(f'{x:.2e}') for x in runs[0]['cmp']['norm_rels']]}), "
+          f"parameter change L2 rel {worst('delta_rel')} (tol {DELTA_TOL}); "
+          f"control without the gradient sum: gradient norm rel >= "
+          f"{min(r['control']['norm_rel'] for r in runs):.2e}, parameter "
+          f"change L2 rel >= {min(r['control']['delta_rel'] for r in runs):.2e}"
+          f" (both must fail); micro-step median "
+          f"{[round(med(r['step_ms']), 1) for r in runs]}"
+          f" ms per rank (4 ranks time-sharing one card) vs "
+          f"{med(single['step_ms']):.1f} ms single-process (deterministic "
+          f"algorithms), gradient "
+          f"all-reduce {[round(r['allreduce_ms'], 1) for r in runs]} ms a "
+          f"micro-step (gloo, float32); fit "
+          f"{[round(r['wall_s'], 2) for r in runs]} s vs "
+          f"{single['wall_s']:.2f} s; sharded l2_topk ids (1,024-row "
+          f"shards, merged) differ from the single-process kernel's in "
+          f"{st['differ']} of {st['queries']} queries per rank, every pick "
+          f"within {max(r['ids']['kernel_excess'] for r in runs):.2e} of "
+          f"the nearest (tol {INTEROP_TIE_REL:.0e}), exact ties "
+          f"{[r['ids']['exact_ties'] for r in runs]}")
+    del runs, single
+    # 2b. tp3 serving of the serving bundle: the single-process service first
+    bundle = make_bundle(n_train_samples=64, n_ref_samples=1004,
+                         n_sites=3 * 1020, n_windows=3, seed=17)
+    targets = []
+    for seed in (1, 2):
+        keep = np.random.default_rng(seed).random(bundle.train.n_variants) \
+            >= 0.5
+        targets.append(_drop(bundle.train, keep))
+    svc = ImputationService.create(build_model(PRESETS["tpu_default"],
+                                               bundle.vocab.size, seed=0),
+                                   bundle.ref, bundle.freq, batch_size=32)
+    refs, ref_sec = [], []
+    for target in targets:
+        svc.handle_target(target)      # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        refs.append(svc.handle_target(target))
+        torch.cuda.synchronize()
+        ref_sec.append(time.perf_counter() - t)
+    del svc
+    torch.cuda.empty_cache()
+
+    def band(got: dict, want) -> tuple[float, float]:
+        miss = want.imputed_flag
+        d = [np.abs(got[f][miss] - getattr(want, f)[miss])
+             for f in ("hap1_prob", "hap2_prob", "gt_prob")]
+        return max(float(x.mean()) for x in d), max(float(x.max())
+                                                    for x in d)
+
+    runs = _spawn(_dist_serve_rank, 3, (targets,), "tp3 serving")
+    batches = 3 * 2
+    per_rank = {"attention": m.n_layers * batches * 2, "attention_bwd": 0,
+                "l2_topk": batches * 2, "l2_topk_rf": 0, "l2_topk_float": 0}
+    for r in runs:
+        _add(total, r["launches"])
+        check(r["heads"] == 1 and r["launches"] == per_rank,
+              f"tp3 rank: heads {r['heads']}, launches {r['launches']}")
+    check(all(r.get("followed", 2) == 2 for r in runs),
+          "a tp3 rank did not follow both requests")
+    bands = [band(g, w) for g, w in zip(runs[0]["results"], refs)]
+    print(f"tp3 serving (one head of 128 a rank): requests "
+          f"{[round(x, 3) for x in runs[0]['sec']]} s vs "
+          f"{[round(x, 3) for x in ref_sec]} s single-process (warm); "
+          f"mean/max |dp| over imputed genotypes {bands} (tol "
+          f"{PROB_MEAN_TOL}/{PROB_MAX_TOL})")
+    check(all(a <= PROB_MEAN_TOL and b <= PROB_MAX_TOL for a, b in bands),
+          "tp3 serving left the bf16 band of the single-process service")
+
+    # 2c + 3. dp2 imputation, then the genotype index over two shards
+    b, n, d = FLOAT_INDEX
+    bits, q = index_bits(n, d, b, "cuda")
+    single_idx = {}
+    for name, kw, _ in STORAGES:
+        idx = FlatL2Index.build(bits, **kw)
+        single_idx[name] = (time_ms(lambda: idx.search(q, 10,
+                                                       use_pallas=True), 3),
+                            *(x.cpu() for x in idx.search(q, 10,
+                                                          use_pallas=True)))
+        del idx
+        torch.cuda.empty_cache()
+    del bits, q
+    torch.cuda.empty_cache()
+    runs = _spawn(_dist_index_rank, 2, (targets[0],),
+                  "dp2 imputation + 2-shard genotype index")
+    # each storage searched with both merges, each twice (warm, timed)
+    per_rank = {"attention": m.n_layers * batches, "attention_bwd": 0,
+                "l2_topk": batches, "l2_topk_rf": 2 * 2 * 2,
+                "l2_topk_float": 2 * 2 * 2}
+    for r in runs:
+        _add(total, r["launches"])
+        check(r["launches"] == per_rank,
+              f"dp2/index rank launches {r['launches']}, want {per_rank}")
+    mean_d, max_d = band(runs[0]["infer"], refs[0])
+    exact = all(np.array_equal(runs[0]["infer"][f], getattr(refs[0], f))
+                for f in ("hap1_prob", "hap2_prob", "gt_prob"))
+    print(f"dp2 imputation: {[round(r['infer_sec'], 3) for r in runs]} s "
+          f"vs {ref_sec[0]:.3f} s single-process; bit-identical {exact}, "
+          f"mean/max |dp| {mean_d:.3e}/{max_d:.3e} (tol "
+          f"{PROB_MEAN_TOL}/{PROB_MAX_TOL})")
+    check(mean_d <= PROB_MEAN_TOL and max_d <= PROB_MAX_TOL,
+          "dp2 imputation differs from the single-process output")
+    for name, _, kernel in STORAGES:
+        one_ms, sv, si = single_idx[name]
+        line = []
+        for merge in ("all_gather", "ring"):
+            for r in runs:
+                ms, v, i = r["search"][name, merge]
+                check(torch.equal(v, sv) and torch.equal(i, si),
+                      f"sharded {name} index ({merge}) differs from "
+                      "FlatL2Index")
+            line.append(f"{merge} {[round(r['search'][name, merge][0], 2) for r in runs]} ms")
+        print(f"genotype index {name} ({kernel} per 332,324-row shard), "
+              f"[1024] x [664,648, 2040] k 10: ids and distances equal to "
+              f"the single-process search (ties to the lower id on both); "
+              f"sharded search per rank (host clock, two ranks time-sharing "
+              f"the card, merge included) {'; '.join(line)}; single-process "
+              f"{one_ms:.2f} ms (CUDA events)")
+    print(f"distributed launches, every rank's mesh runs summed: {total}")
+    return total
+
+
+QUALITY_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "assets", "quality_ckpt.npz")
+# tests/make_quality_ckpt.py's bundle and model (64d, 2 layers, 4 heads,
+# float32, post-LN) and tests/test_quality_regression.py's arguments.
+QUALITY_BUNDLE = dict(n_train_samples=24, n_ref_samples=48, n_sites=240,
+                      n_windows=2, n_founders=48, mean_gap_bp=400, seed=7)
+QUALITY_SEQ = 128
+
+
+def phase_quality_ckpt(profile: bool = False) -> dict[str, int]:
+    """The stored trained checkpoint served on the card: imputation of the
+    calibrated panel's held-back sites through l2_topk, every search's ids
+    held against the plain search's (exact and sub-ulp near-ties excepted,
+    INTEROP_TIE_REL in float64), and the quality gates of
+    tests/test_quality_regression.py."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import (ModelConfig, RunConfig,
+                                              build_model)
+    from rag_snvbert_tpu_torch.infer.imputer import Imputer
+    from rag_snvbert_tpu_torch.interop import (load_flax_params,
+                                               params_from_keystr_npz)
+    from rag_snvbert_tpu_torch.io.freq import AF
+    from rag_snvbert_tpu_torch.io.synthetic import make_calibrated_bundle
+    from rag_snvbert_tpu_torch.train import retrieval
+
+    b = make_calibrated_bundle(**QUALITY_BUNDLE)
+    model = build_model(RunConfig(model=ModelConfig(
+        dims=64, n_layers=2, attn_heads=4, seq_len=QUALITY_SEQ)),
+        b.vocab.size)
+    load_flax_params(model, params_from_keystr_npz(QUALITY_CKPT))
+    keep = np.random.default_rng(123).random(b.train.n_variants) > 0.4
+    real_search, searches = retrieval.search, []
+
+    def held(q, ctx, k, use_kernel=True):
+        ids = real_search(q, ctx, k, use_kernel)
+        plain = real_search(q, ctx, k, False)
+        searches.append(_exact_nearest(q, ctx, ids[:, 0], plain[:, 0]))
+        return ids
+
+    retrieval.search = held
+    ops.reset_launches()
+    try:
+        res = Imputer(model, b.ref, b.freq, window_len=QUALITY_SEQ - 8,
+                      seq_len=QUALITY_SEQ, ref_pad_haps=96,
+                      batch_size=16).impute(_drop(b.train, keep))
+    finally:
+        retrieval.search = real_search
+    counts = ops.launch_counts()
+    miss = ~keep
+    truth = np.stack([b.train.gt[miss, :, 0], b.train.gt[miss, :, 1]])
+    calls = np.stack([res.hap1_prob[miss] >= 0.5,
+                      res.hap2_prob[miss] >= 0.5]).astype(np.int8)
+    acc = float((calls == truth).mean())
+    af = b.freq.lookup(AF, b.freq.global_idx, b.train.pos[miss])
+    prior = (af >= 0.5).astype(np.int8)[None, :, None]
+    prior_acc = float((np.broadcast_to(prior, truth.shape) == truth).mean())
+    rare = np.minimum(af, 1 - af) < 0.05
+
+    def f1(c, t):
+        tp = int(((c == 1) & (t == 1)).sum())
+        fp, fn = int(((c == 1) & (t == 0)).sum()), int(((c == 0)
+                                                        & (t == 1)).sum())
+        p, r = tp / max(tp + fp, 1), tp / max(tp + fn, 1)
+        return 2 * p * r / max(p + r, 1e-9)
+
+    rare_f1, common_f1 = (f1(calls[:, s], truth[:, s]) for s in (rare,
+                                                                 ~rare))
+    st = {key: [s[key] for s in searches] for key in searches[0]}
+    want = {"attention": 0, "attention_bwd": 0, "l2_topk": len(searches),
+            "l2_topk_rf": 0, "l2_topk_float": 0}
+    print(f"stored trained checkpoint on the card: accuracy {acc:.4f} "
+          f"(prior {prior_acc:.4f}), rare F1 {rare_f1:.4f}, common F1 "
+          f"{common_f1:.4f}; {len(searches)} l2_topk searches of "
+          f"[{st['queries'][0]}] x [{st['rows'][0]}] rows: kernel ids differ "
+          f"from the plain search's in {sum(st['differ'])} of "
+          f"{sum(st['queries'])} queries, largest nearest-to-second gap "
+          f"where they differ {max(st['differ_gap']):.3e}; kernel pick above "
+          f"the nearest by at most {max(st['kernel_excess']):.3e} (tol "
+          f"{INTEROP_TIE_REL:.0e}); exact ties {sum(st['exact_ties'])}, "
+          f"near ties {sum(st['near_ties'])}; launches {counts}")
+    check(counts == want, "the checkpoint was not served through l2_topk")
+    check(max(st["kernel_excess"]) <= INTEROP_TIE_REL
+          and max(st["differ_gap"]) <= INTEROP_TIE_REL,
+          "l2_topk picks a row that is not the nearest on trained weights")
+    check(acc >= 0.95 and acc >= prior_acc + 0.10 and rare_f1 >= 0.70
+          and common_f1 >= 0.93, "the stored checkpoint failed its gates")
+    return counts
+
+
 def profile_train_steps(trainer, opt, batch, ctx) -> None:
     """Two more micro-steps under torch.profiler, one accumulate-only and
     one with the optimizer update: device time by kernel and the device's
@@ -2488,6 +3029,10 @@ def main() -> None:
         fail("no CUDA device: this smoke runs the port on the card")
     from rag_snvbert_tpu_torch.ops import _build
 
+    # a 32 MiB cuBLAS workspace (the size PyTorch takes on Hopper), named
+    # so that phase_distributed may turn on deterministic algorithms, whose
+    # cuBLAS calls require it; read once, at the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     card = card_line()
     print(card)
@@ -2545,7 +3090,9 @@ def main() -> None:
                         ("int8", phase_int8),
                         ("cli", phase_cli),
                         ("interop", phase_interop),
-                        ("convergence", phase_convergence)):
+                        ("convergence", phase_convergence),
+                        ("quality_ckpt", phase_quality_ckpt),
+                        ("distributed", phase_distributed)):
         torch.cuda.empty_cache()
         t = time.perf_counter()
         paths[name] = phase(profile)

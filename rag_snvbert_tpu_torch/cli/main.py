@@ -25,10 +25,17 @@ and files, so what either package writes the other reads:
                  ``train --init-from`` take
   export-ckpt  : a port checkpoint -> a reference state_dict
 The model and the index live on the card unless ``--device cpu`` is given
-(the CLI form of the port's ``device="cpu"`` rule).  The flags that need a
-module not ported yet exit with the ROADMAP item that ports them.  An orbax
-checkpoint of the JAX package cannot be read here (no JAX): export it with
-the JAX package's ``export-ckpt``, then ``convert-ckpt`` the file.
+(the CLI form of the port's ``device="cpu"`` rule).  An orbax checkpoint of
+the JAX package cannot be read here (no JAX): export it with the JAX
+package's ``export-ckpt``, then ``convert-ckpt`` the file.
+
+Scale-out (``query --index-shards``, ``train --data-parallel /
+--index-shards / --tensor-parallel``, ``infer``/``serve --data-parallel``):
+the verb runs on every rank of a process group, one rank per shard of the
+mesh.  Under torchrun it joins the world it finds; otherwise it starts
+that many local ranks itself (this process is rank 0).
+``--dist-backend`` picks NCCL (the default on the card) or gloo (the CPU,
+or ranks that share one card).  Rank 0 prints and writes the outputs.
 
 Run as ``python -m rag_snvbert_tpu_torch.cli.main <verb> --help``.
 """
@@ -43,6 +50,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import is_writer
+
 
 def _add_device(p):
     p.add_argument("--device", default=None,
@@ -50,9 +61,53 @@ def _add_device(p):
                         "default, 'cpu' to run off the card")
 
 
-def _refuse(what: str, item: str) -> None:
-    raise SystemExit(f"{what}: not ported to rag_snvbert_tpu_torch yet "
-                     f"(ROADMAP Queue A, item {item})")
+def _add_dist_backend(p):
+    p.add_argument("--dist-backend", dest="dist_backend", default=None,
+                   choices=["nccl", "gloo"],
+                   help="process-group backend of a run over several ranks: "
+                        "nccl (the default on the card) or gloo (the only "
+                        "one with --device cpu, and for ranks that share "
+                        "one card)")
+
+
+def _say(*a, **kw) -> None:
+    """``print`` on rank 0 only."""
+    if is_writer():
+        print(*a, **kw)
+
+
+def _world_size(args) -> int:
+    """Ranks the verb's mesh needs (1: a single-process run)."""
+    if args.cmd == "query":
+        return args.index_shards
+    if args.cmd == "train":
+        return args.data_parallel * args.index_shards * args.tensor_parallel
+    if args.cmd in ("infer", "serve"):
+        return args.data_parallel
+    return 1
+
+
+def _backend(args) -> str:
+    """The explicit backend: ``--dist-backend``, else nccl on the card and
+    gloo with ``--device cpu`` (NCCL carries only CUDA tensors)."""
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    if args.dist_backend is None:
+        return "gloo" if cpu else "nccl"
+    if args.dist_backend == "nccl" and cpu:
+        raise SystemExit("--dist-backend nccl needs the card; pass "
+                         "--dist-backend gloo with --device cpu")
+    return args.dist_backend
+
+
+def _mesh(args, n_data: int = 1, n_index: int = 1, n_model: int = 1):
+    """The verb's mesh over the process group (None for one rank)."""
+    if n_data * n_index * n_model == 1:
+        return None
+    from ..device import resolve_device
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(n_data, n_index, n_model,
+                     device=resolve_device(args.device))
 
 
 def _add_model_args(p):
@@ -160,11 +215,32 @@ def cmd_query(args):
     partial (masked search over the persisted index, no rebuild)."""
     from ..device import resolve_device
     from ..index.flat import FlatL2Index, HammingIndex
+    from ..index.sharded import ShardedFlatL2Index
     from ..io.vcf import load_vcf_or_hdf5
 
-    if args.index_shards > 1:
-        _refuse("--index-shards > 1 (the sharded index)", "A7")
+    if args.index_shards > 1 and (args.mode == "partial" or args.hamming):
+        raise SystemExit("--index-shards supports the L2 flat/intersect "
+                         "modes (masked/partial search and Hamming run on "
+                         "one rank)")
     device = resolve_device(args.device)
+    mesh = _mesh(args, n_index=args.index_shards)
+
+    def build_sharded(rows: np.ndarray, like: str | None):
+        """The sharded index over the mesh, in the storage of the persisted
+        index ``like`` (float32 without one)."""
+        if like is None:
+            return ShardedFlatL2Index.build(mesh, rows.astype(np.float32),
+                                            device=device)
+        z = np.load(like + ".npz")
+        pack = int(z["pack"]) if "pack" in z else 1
+        if pack > 1:
+            return ShardedFlatL2Index.build(mesh, rows.astype(np.int8),
+                                            pack=pack, device=device)
+        tag = str(z["dtype"]) if "dtype" in z else "float32"
+        dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8, "int4": "int4"}[tag]
+        return ShardedFlatL2Index.build(mesh, rows.astype(np.float32),
+                                        dtype=dt, device=device)
     data = load_vcf_or_hdf5(args.vcf)
     with open(os.path.join(args.db, "meta.json")) as f:
         meta = json.load(f)
@@ -184,6 +260,8 @@ def cmd_query(args):
             if args.hamming:
                 idx = HammingIndex.build(ref_sub, device=device)
                 query = torch.from_numpy(q.astype(np.int8))
+            elif mesh is not None:
+                idx, query = build_sharded(ref_sub, like=None), q
             else:
                 idx = FlatL2Index.build(ref_sub.astype(np.float32),
                                         device=device)
@@ -192,8 +270,10 @@ def cmd_query(args):
             t0 = time.time()
             vals, ids = idx.search(query, args.k)
         else:
-            idx = FlatL2Index.load(os.path.join(args.db, f"window_{w}.idx"),
-                                   device=device)
+            path = os.path.join(args.db, f"window_{w}.idx")
+            # the .npy rows are the vectors the .idx was built from
+            idx = (build_sharded(ref_flat, like=path) if mesh is not None
+                   else FlatL2Index.load(path, device=device))
             g = data.gt[np.where(common, found, 0)]          # [n, S, 2]
             g = np.where(common[:, None, None], g, 0)
             q = g.transpose(1, 0, 2).reshape(data.n_samples,
@@ -210,13 +290,13 @@ def cmd_query(args):
         totals["build_t"] += build_t
         totals["search_t"] += search_t
         totals["n_queries"] += q.shape[0]
-        if args.save_results:
+        if args.save_results and is_writer():
             os.makedirs(args.save_results, exist_ok=True)
             np.save(os.path.join(args.save_results, f"window_{w}_ids.npy"),
                     ids)
             np.save(os.path.join(args.save_results, f"window_{w}_vals.npy"),
                     vals)
-        if args.verbose:
+        if args.verbose and is_writer():
             # best hit, its population where the database has labels, and
             # target-vs-neighbour allele snippets (test_faiss.py's check)
             best = int(ids[0][0])
@@ -236,7 +316,7 @@ def cmd_query(args):
                   f"{ref_rows[best, :show].astype(np.int8).tolist()}")
     totals["qps"] = round(totals["n_queries"]
                           / max(totals["search_t"], 1e-9), 1)
-    print(json.dumps(totals))
+    _say(json.dumps(totals))
 
 
 # ---------------------------------------------------------------------------
@@ -291,13 +371,9 @@ def cmd_train(args):
     from ..interop import load_convert_meta
     from ..train.trainer import Trainer
 
-    if (args.data_parallel > 1 or args.index_shards > 1
-            or args.tensor_parallel > 1):
-        _refuse("--data-parallel, --index-shards or --tensor-parallel > 1 "
-                "(the device mesh)", "A7")
-    if args.shard_ctx == "on":
-        _refuse("--shard-ctx on (the sharded retrieval context)", "A7")
     device = resolve_device(args.device)
+    mesh = _mesh(args, args.data_parallel, args.index_shards,
+                 args.tensor_parallel)
     preset = get_preset(args.preset) if args.preset else None
     base = preset or get_preset("v18_embedding_rag")
     if preset is None:
@@ -339,15 +415,15 @@ def cmd_train(args):
     # weights from the run's seed, as the JAX trainer draws its init
     model = build_model(base, vocab.size, device=device, seed=args.seed)
     trainer = Trainer(model, train_ds, _resolve_trainer_config(args, base),
-                      val_ds=val_ds, train_sample_ids=train_ids,
+                      val_ds=val_ds, mesh=mesh, train_sample_ids=train_ids,
                       val_sample_ids=val_ids)
     if args.resume_path:
         trainer.restore_checkpoint(args.resume_path)
     elif args.init_from:
         trainer.init_params_from(args.init_from)
     result = trainer.fit()
-    print(json.dumps({"best": result["best"],
-                      "best_epoch": result["best_epoch"]}))
+    _say(json.dumps({"best": result["best"],
+                     "best_epoch": result["best_epoch"]}))
 
 
 # ---------------------------------------------------------------------------
@@ -377,8 +453,6 @@ def _load_infer_model(args):
     from ..device import resolve_device
     from ..interop import load_convert_meta
 
-    if args.data_parallel > 1:
-        _refuse("--data-parallel > 1 (the serving mesh)", "A7")
     state_path = os.path.join(args.model_path, "state.pt")
     if not os.path.exists(state_path):
         raise SystemExit(
@@ -445,7 +519,8 @@ def _imputer_kw(args, rag_mode: str) -> dict:
     return dict(window_len=args.infer_window_len, seq_len=args.seq_len,
                 rag_k=args.rag_k if args.rag_k is not None else 1,
                 batch_size=args.batch_size, rag_mode=rag_mode,
-                index_dir=args.index_dir, device=args.device)
+                index_dir=args.index_dir, device=args.device,
+                mesh=_mesh(args, args.data_parallel))
 
 
 def cmd_infer(args):
@@ -457,13 +532,15 @@ def cmd_infer(args):
     target = load_vcf_or_hdf5(args.target)
     freq = _load_freq(args.freq_path, ref_vcf)
     imp = Imputer(model, ref_vcf, freq, **_imputer_kw(args, rag_mode))
-    if args.save_index_dir:
+    if args.save_index_dir and is_writer():
         manifest = imp.save_window_indexes(args.save_index_dir, target)
         print(json.dumps({"saved_indexes": manifest}))
     if args.progressive_rounds > 1:
         res = imp.impute_progressive(target, rounds=args.progressive_rounds)
     else:
         res = imp.impute(target)
+    if not is_writer():
+        return
     if args.npy_prefix:
         res.save_npy(args.npy_prefix)
     res.write_vcf(args.output_vcf, ref_vcf, target.samples)
@@ -495,16 +572,22 @@ def cmd_serve(args):
     svc_cls = (BatchingImputationService if args.http is not None
                else ImputationService)
     svc = svc_cls.create(model, ref_vcf, freq, **_imputer_kw(args, rag_mode))
-    if args.http is not None:
-        from ..infer.httpd import serve_http
-
-        serve_http(svc, host or "127.0.0.1", int(port))
+    if not is_writer():          # a mesh's other ranks: rank 0's requests
+        svc.follow()
         return
-    print(json.dumps({"ready": True, "ref_sites": ref_vcf.n_variants}),
-          flush=True)
-    n = svc.serve_lines(sys.stdin, sys.stdout)
-    print(json.dumps({"served": n, "launches": ops.launch_counts()}),
-          file=sys.stderr)
+    try:
+        if args.http is not None:
+            from ..infer.httpd import serve_http
+
+            serve_http(svc, host or "127.0.0.1", int(port))
+            return
+        print(json.dumps({"ready": True, "ref_sites": ref_vcf.n_variants}),
+              flush=True)
+        n = svc.serve_lines(sys.stdin, sys.stdout)
+        print(json.dumps({"served": n, "launches": ops.launch_counts()}),
+              file=sys.stderr)
+    finally:
+        svc.release()
 
 
 # ---------------------------------------------------------------------------
@@ -639,10 +722,14 @@ def build_parser() -> argparse.ArgumentParser:
     pq.add_argument("--save-results", dest="save_results", default=None,
                     help="directory for per-window ids/distances .npy")
     pq.add_argument("--index-shards", dest="index_shards", type=int,
-                    default=1, help="> 1 is not ported yet (Queue A, A7)")
+                    default=1,
+                    help="shard each window's index over this many ranks "
+                         "(mesh 'index' axis; exact candidate merge), the "
+                         "offline counterpart of train --index-shards")
     pq.add_argument("--show-snp-len", type=int, default=10,
                     help="alleles per snippet in --verbose output")
     _add_device(pq)
+    _add_dist_backend(pq)
     pq.set_defaults(fn=cmd_query)
 
     pt = sub.add_parser("train")
@@ -685,14 +772,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help=".npy sample-index subset for validation on the "
                          "training cohort (single-VCF train/val)")
     pt.add_argument("--data-parallel", dest="data_parallel", type=int,
-                    default=1, help="> 1 is not ported yet (Queue A, A7)")
+                    default=1, help="ranks on the mesh data axis (each "
+                    "takes its rows of every batch)")
     pt.add_argument("--index-shards", dest="index_shards", type=int,
-                    default=1, help="> 1 is not ported yet (Queue A, A7)")
+                    default=1, help="ranks on the mesh index axis "
+                    "(shards the retrieval context)")
     pt.add_argument("--tensor-parallel", dest="tensor_parallel", type=int,
-                    default=1, help="> 1 is not ported yet (Queue A, A7)")
+                    default=1, help="ranks on the mesh model axis "
+                    "(Megatron encoder tensor parallelism; must divide "
+                    "the attention heads)")
     pt.add_argument("--shard-ctx", dest="shard_ctx",
                     choices=["auto", "on", "off"], default="auto",
-                    help="'on' is not ported yet (Queue A, A7)")
+                    help="shard the window context over the index axis "
+                         "('auto': when --index-shards > 1)")
     pt.add_argument("--ctx-merge", dest="ctx_merge",
                     choices=["all_gather", "ring"], default="all_gather")
     pt.add_argument("--prefetch-ctx", dest="prefetch_ctx",
@@ -717,6 +809,7 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--profile-steps", dest="profile_steps", type=int,
                     default=4)
     _add_device(pt)
+    _add_dist_backend(pt)
     pt.set_defaults(fn=cmd_train)
 
     def add_infer_model_args(p):
@@ -741,7 +834,8 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--no_attn_dropout", action="store_true")
         p.add_argument("--batch_size", type=int, default=32)
         p.add_argument("--data-parallel", dest="data_parallel", type=int,
-                       default=1, help="> 1 is not ported yet (Queue A, A7)")
+                       default=1, help="split each query batch over this "
+                       "many ranks (mesh data axis) for serving scale-out")
         p.add_argument("--rag-mode", dest="rag_mode", default=None,
                        choices=["embedding", "token", "none"],
                        help="retrieval mode; defaults to the preset's (or "
@@ -752,6 +846,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "(written by --save-index-dir) instead of "
                             "re-encoding the reference panel")
         _add_device(p)
+        _add_dist_backend(p)
 
     pi = sub.add_parser("infer")
     pi.add_argument("--target", required=True)
@@ -821,8 +916,26 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None):
+def _rank_main(rank: int, argv: list) -> None:
     args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    world = _world_size(args)
+    if world > 1 and not dist.is_initialized():
+        from ..parallel.launch import run_with_local_ranks
+        from ..parallel.mesh import init_distributed
+
+        backend = _backend(args)
+        if "WORLD_SIZE" not in os.environ:      # not under torchrun
+            return run_with_local_ranks(_rank_main, world, (argv,), backend)
+        init_distributed(backend)
+        if dist.get_world_size() != world:
+            raise SystemExit(f"the mesh needs {world} ranks; torchrun "
+                             f"started {dist.get_world_size()}")
     return args.fn(args)
 
 

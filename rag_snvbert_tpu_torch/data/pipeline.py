@@ -2,8 +2,8 @@
 loops per item.
 
 Copy of rag_snvbert_tpu/data/pipeline.py (:36-297).  The multi-host branch
-of ``epoch_batches`` (``n_hosts > 1``) waits for the port's
-``torch.distributed`` slice and raises here.
+of ``epoch_batches`` (``n_hosts > 1``) yields each data-parallel rank its
+rows of every global batch (``parallel/multihost.py``).
 
 The reference assembles items one (sample, window) pair at a time in
 DataLoader workers (TrainDataset.__getitem__, src/dataset/dataset.py:
@@ -260,12 +260,18 @@ class WindowDataset:
         padded to ``batch_size``.  Mask seed = epoch for train (val passes
         its fixed seed explicitly).
 
-        Multi-host input (``n_hosts`` > 1) is not ported yet and raises.
+        Multi-host input (``n_hosts`` > 1): every host iterates the same
+        deterministic global schedule but assembles only its contiguous
+        ``batch_size / n_hosts`` slice of each global batch (a data-parallel
+        rank's rows, ``parallel/multihost.py``).  All hosts see the same
+        number of steps (trailing batches are padded globally, padded rows
+        loss-masked), so collectives never desynchronize.  ``packed`` is
+        honoured on every host.
         """
-        if n_hosts != 1 or host_id != 0:
-            raise NotImplementedError(
-                "multi-host input (n_hosts > 1) waits for the port's "
-                "torch.distributed slice (ROADMAP Queue A 7)")
+        if batch_size % n_hosts:
+            raise ValueError(f"batch size {batch_size} does not divide over "
+                             f"{n_hosts} hosts")
+        per = batch_size // n_hosts
         rng = np.random.default_rng(epoch if seed is None else seed)
         mask_seed = epoch if seed is None else seed
         win_order = rng.permutation(self.n_windows) if shuffle else \
@@ -276,6 +282,21 @@ class WindowDataset:
             meta = self.windows[wi]
             ids = rng.permutation(base_ids) if shuffle else base_ids
             for i in range(0, len(ids), batch_size):
-                yield meta, self.make_batch(meta, ids[i: i + batch_size],
-                                            level, mask_seed,
-                                            pad_to=batch_size, packed=packed)
+                gchunk = ids[i: i + batch_size]
+                if n_hosts == 1:
+                    yield meta, self.make_batch(meta, gchunk, level,
+                                                mask_seed, pad_to=batch_size,
+                                                packed=packed)
+                    continue
+                olen = len(gchunk)
+                if olen < batch_size:  # the same global padding everywhere
+                    gchunk = np.concatenate(
+                        [gchunk, np.repeat(gchunk[:1], batch_size - olen)])
+                lo = host_id * per
+                batch = self.make_batch(meta, gchunk[lo: lo + per], level,
+                                        mask_seed, packed=packed)
+                # rows that are global padding contribute no loss/metrics
+                pad_rows = np.arange(lo, lo + per) >= olen
+                if pad_rows.any():
+                    batch["mask"][pad_rows] = 0
+                yield meta, batch

@@ -7,8 +7,12 @@ window-table) windows, one-window lookahead of the reference context, the
 threaded query assembly, the depth-bounded pipeline of device outputs, and
 persisted per-window embedding indexes (``save_window_indexes``,
 ``index_dir``; the same ``index_{w}.npz`` and ``manifest.json`` as the JAX
-package, so either package's files serve the other).  The device mesh of
-data-parallel serving waits for ROADMAP Queue A 7.
+package, so either package's files serve the other).  ``mesh``
+(JAX imputer.py:77-137): every rank of the process group runs the same
+imputation; each device batch's rows are split over the ``data`` axis,
+the model is split over a ``model`` axis above 1 (``parallel/tp.py``),
+and the probabilities are gathered to every rank (rank 0 writes them), so
+the result is the single-process one.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from ..index.flat import FlatL2Index
 from ..io.freq import AF, FreqTable
 from ..io.vcf import VCFData, write_imputed_vcf
 from ..io.vocab import INFER_WINDOW_LEN, MAX_SEQ_LEN
+from ..parallel import comm, tp
+from ..parallel.mesh import DATA_AXIS, axis_group, data_sharding
 from ..train.retrieval import (TokenWindowContext, WindowRefContext,
                                build_token_window_ctx, check_int8_vocab,
                                encode_window_refs, retrieve, retrieve_tokens)
@@ -73,7 +79,10 @@ class Imputer:
     ``save_window_indexes`` instead of encoding the reference panel per
     window (embedding mode only).  The persisted masks must match the
     target's missing sites.  The loaded context goes through the same
-    search (``ops.l2_topk``) as an encoded one."""
+    search (``ops.l2_topk``) as an encoded one.
+
+    ``mesh``: data- and tensor-parallel imputation over the process group
+    (module docstring); ``batch_size`` must divide over the data axis."""
 
     # Per-site rows that are the same for every sample of a window: sent
     # to the device once per window as [L] and broadcast there.
@@ -85,7 +94,8 @@ class Imputer:
                  ref_pad_haps: int = 2048, batch_size: int = 32,
                  use_kernel: bool = True, window=None,
                  pipeline_depth: int = 8, device=None,
-                 rag_mode: str = "embedding", index_dir: str | None = None):
+                 rag_mode: str = "embedding", index_dir: str | None = None,
+                 mesh=None):
         if rag_mode not in ("embedding", "token", "none"):
             raise ValueError(f"unknown rag_mode {rag_mode!r}")
         if index_dir is not None and rag_mode != "embedding":
@@ -97,7 +107,12 @@ class Imputer:
         if rag_mode == "token" and self.device.type == "cuda":
             check_int8_vocab(model)
         self.rag_mode = rag_mode
-        self.model = model.to(self.device).eval()
+        self.model = tp.shard_model(model.to(self.device).eval(), mesh)
+        self.mesh = mesh
+        # this rank's rows of every device batch (all of them without a mesh)
+        self.rows = data_sharding(mesh, batch_size)
+        self.data_group = (axis_group(mesh, DATA_AXIS)
+                           if mesh is not None else None)
         self.ref_vcf = ref_vcf
         self.freq = freq
         self.window_len = window_len
@@ -294,6 +309,9 @@ class Imputer:
             const = {k: self._tensor(v) for k, v in const.items()}
 
             def scatter(b0, b1, nb, out):
+                if self.data_group is not None:   # every data rank's rows
+                    out = (comm.all_gather(t, self.data_group).flatten(0, 1)
+                           for t in out)
                 p1, p2, pg = (t.cpu().numpy() for t in out)
                 # strip SOS slot and padding: body = sites s..e at 1..n
                 hap1[s:e, b0:b1] = p1[:nb, 1: 1 + n].T
@@ -312,8 +330,9 @@ class Imputer:
                     return np.concatenate([x, np.repeat(x[:1], pad, 0)]) \
                         if pad else x
 
-                haps = {"hap_1": self._tensor(pad_rows(toks1[b0:b1])),
-                        "hap_2": self._tensor(pad_rows(toks2[b0:b1]))}
+                mine = self.rows
+                haps = {"hap_1": self._tensor(pad_rows(toks1[b0:b1])[mine]),
+                        "hap_2": self._tensor(pad_rows(toks2[b0:b1])[mine])}
                 pending.append((b0, b1, nb,
                                 self._forward({**haps, **const}, ctx)))
                 if len(pending) > self.pipeline_depth:

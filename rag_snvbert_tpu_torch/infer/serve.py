@@ -6,6 +6,11 @@ Port of rag_snvbert_tpu/infer/serve.py: ``ImputationService`` (``create``,
 ``BatchingImputationService``, which merges concurrent requests of one
 missing-site pattern into shared device batches.  Transport is JSON lines
 over stdin/stdout (the ``serve`` verb) or HTTP (``infer/httpd.py``).
+
+On a mesh (``serve --data-parallel N``) every rank holds the imputer and
+rank 0 runs the front end: before each imputation it broadcasts the
+target to the other ranks, which run ``follow`` (the same imputation,
+its collectives included) until rank 0's ``release``.
 """
 
 from __future__ import annotations
@@ -17,8 +22,10 @@ import threading
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from ..io.freq import FreqTable
+from ..parallel.comm import broadcast_object
 from ..io.vcf import VCFData, load_vcf_or_hdf5
 from .imputer import ImputationResult, Imputer
 
@@ -42,6 +49,38 @@ class ImputationService:
         V17 ``BERTWithRAG`` model, ``"none"`` a plain ``BERT``)."""
         imp = Imputer(model, ref_vcf, freq, device=device, **imputer_kw)
         return cls(imputer=imp, ref_vcf=ref_vcf)
+
+    @property
+    def _world(self) -> int:
+        mesh = getattr(self.imputer, "mesh", None)   # any imputer-like
+        return 1 if mesh is None else dist.get_world_size()
+
+    def _impute(self, target: VCFData, rounds: int = 1) -> ImputationResult:
+        """The imputation itself; on a mesh, rank 0 first hands the target
+        to the other ranks (``follow``)."""
+        if self._world > 1:
+            broadcast_object((target, rounds))
+        if rounds > 1:
+            return self.imputer.impute_progressive(target, rounds=rounds)
+        return self.imputer.impute(target)
+
+    def follow(self) -> int:
+        """Ranks other than 0 of a mesh: run every imputation rank 0
+        broadcasts, until ``release``; returns how many ran."""
+        n = 0
+        while (item := broadcast_object(None)) is not None:
+            target, rounds = item
+            if rounds > 1:
+                self.imputer.impute_progressive(target, rounds=rounds)
+            else:
+                self.imputer.impute(target)
+            n += 1
+        return n
+
+    def release(self) -> None:
+        """Rank 0 of a mesh: end the other ranks' ``follow``."""
+        if self._world > 1:
+            broadcast_object(None)
 
     def handle(self, request: dict) -> dict:
         """One request:
@@ -68,9 +107,7 @@ class ImputationService:
         """The device-facing half of ``handle`` (parse and write excluded):
         impute one parsed target (``rounds > 1``: progressive).  The seam
         the batching service overrides."""
-        if rounds > 1:
-            return self.imputer.impute_progressive(target, rounds=rounds)
-        return self.imputer.impute(target)
+        return self._impute(target, rounds)
 
     def serve_lines(self, in_stream, out_stream) -> int:
         """JSON-lines request loop; returns the number of requests served.
@@ -219,7 +256,7 @@ class BatchingImputationService(ImputationService):
                 first,
                 gt=np.concatenate([it.target.gt for it in group], axis=1),
                 samples=[s for it in group for s in it.target.samples])
-            res = self.imputer.impute(merged)
+            res = self._impute(merged)
             self._merged_requests += len(group)
             col = 0
             for it in group:

@@ -30,6 +30,7 @@ them; the port keeps them as buffers, whose moments must be zeros.
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -118,12 +119,13 @@ def flax_params_of(model_or_state) -> dict:
 
 
 @torch.no_grad()
-def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
+def load_flax_params(model_or_state, params: Mapping):
     """Copy every leaf of ``params`` (nested dicts of arrays, the flax
-    ``params`` collection) into ``model``; raise on any leaf without a
-    torch counterpart, any torch tensor without a leaf, or a shape
-    mismatch."""
-    state = model.state_dict()
+    ``params`` collection) into a port model or its ``state_dict`` (in
+    place; returned); raise on any leaf without a torch counterpart, any
+    torch tensor without a leaf, or a shape mismatch."""
+    state = (model_or_state.state_dict()
+             if isinstance(model_or_state, nn.Module) else model_or_state)
     seen = set()
     extra = []
     for path, arr in _leaves(params).items():
@@ -143,7 +145,25 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
         raise KeyError(f"flax/torch trees differ: leaves without a torch "
                        f"tensor {extra}; torch tensors without a leaf "
                        f"{missing}")
-    return model
+    return model_or_state
+
+
+def params_from_keystr_npz(path: str) -> dict:
+    """A flax parameter tree from an npz whose keys are
+    ``jax.tree_util.keystr`` paths (``['bert']['encoder']...['kernel']``,
+    as tests/make_quality_ckpt.py writes them), with no JAX: the nested
+    dict ``load_flax_params`` takes."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            parts = re.findall(r"\['([^']*)'\]", key)
+            if "".join(f"['{p}']" for p in parts) != key:
+                raise ValueError(f"{path}: key {key!r} is not a keystr path")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return tree
 
 
 def _find(state, want: str):

@@ -9,6 +9,7 @@ rules so every module above them matches its flax twin.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -49,10 +50,42 @@ class LayerNorm(nn.Module):
         self.compute_dtype = dtype
         self.eps = eps
 
+    # Under tensor parallelism (``parallel/tp.py``) the FFN's LayerNorm
+    # holds its slice of the hidden dimension; the statistics are then
+    # summed over this group.
+    tp_group = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight,
-                         self.bias, self.eps)
+        if self.tp_group is None:
+            y = F.layer_norm(x.float(), self.weight.shape, self.weight,
+                             self.bias, self.eps)
+        else:
+            from ..parallel.comm import all_reduce_sum
+
+            xf = x.float()
+            n = self.weight.numel() * torch.distributed.get_world_size(
+                self.tp_group)
+            mean = all_reduce_sum(xf.sum(-1, keepdim=True), self.tp_group) / n
+            xc = xf - mean
+            var = all_reduce_sum((xc * xc).sum(-1, keepdim=True),
+                                 self.tp_group) / n
+            y = xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(_out_dtype(x, self.weight, self.compute_dtype))
+
+
+def row_parallel(layer: Dense, x: torch.Tensor, group) -> torch.Tensor:
+    """``layer(x)``; with a tensor-parallel ``group``, ``layer`` holds the
+    rows of the contraction that match ``x``'s slice: the partial products
+    are summed over the group in the layer's compute dtype (as Megatron
+    sums them: bf16 halves the bytes of the reduction), then the bias is
+    added."""
+    if group is None:
+        return layer(x)
+    from ..parallel.comm import reduce_from_group
+
+    dt = _out_dtype(x, layer.weight, layer.compute_dtype)
+    y = reduce_from_group(F.linear(x.to(dt), layer.weight.to(dt)), group)
+    return y + layer.bias.to(dt)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -60,47 +93,116 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """This data-parallel rank's rows ``[start, start + count)`` of a
+    global batch of ``total`` rows, so that dropout draws each mask at the
+    global batch's shape and keeps the rank's rows: the masks are then
+    those of one process running the whole batch.
+
+    ``layouts`` maps a tensor's leading size to how it stacks the batch:
+    a sequence of ``(groups, inner)`` segments, each ``groups`` blocks of
+    ``batch x inner`` rows (``[2B]``: the two haplotypes stacked is
+    ``((2, 1),)``; the ``[2B k]`` re-embedding ``((2, k),)``; V17's
+    ``[2B (1 + K)]`` ``((2, 1), (2, K))``).  A size it does not list
+    raises."""
+
+    start: int
+    count: int
+    total: int
+    layouts: tuple = ()
+
+    @classmethod
+    def stacked(cls, start: int, count: int, total: int, rag_k: int = 1,
+                token_rag: bool = False) -> "BatchRows":
+        """The model family's layouts: ``[2B]``, ``[2B k]`` and, for V17
+        token RAG, ``[2B (1 + k)]``."""
+        lay = {2: ((2, 1),), 2 * rag_k: ((2, rag_k),)}
+        if token_rag:
+            lay[2 * (1 + rag_k)] = ((2, 1), (2, rag_k))
+        return cls(start, count, total, tuple(sorted(lay.items())))
+
+    def select(self, n_local: int, device) -> tuple[int, torch.Tensor]:
+        """``(global leading size, int64 index of this rank's rows)`` for a
+        tensor of ``n_local`` rows."""
+        per = dict(self.layouts).get(n_local // self.count) \
+            if n_local % self.count == 0 else None
+        if per is None:
+            raise ValueError(f"no batch layout of {n_local} rows for "
+                             f"{self.count} local rows of {self.total}")
+        parts, g_off = [], 0
+        for groups, inner in per:
+            for g in range(groups):
+                lo = g_off + (g * self.total + self.start) * inner
+                # made on the device: a copy from the host would wait for
+                # the stream
+                parts.append(torch.arange(lo, lo + self.count * inner,
+                                          device=device))
+            g_off += groups * self.total * inner
+        return g_off, torch.cat(parts)
+
+
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
-            broadcast: bool = False) -> torch.Tensor:
+            broadcast: bool = False, rows: BatchRows | None = None,
+            heads: tuple[int, int, int] | None = None) -> torch.Tensor:
     """flax ``nn.Dropout`` in training: keep each element with probability
     ``1 - rate`` and divide the kept ones by it, with the keep draws taken
     from ``gen`` (never torch's global RNG).  ``broadcast`` shares one mask
     along the sequence axis of ``[B, L, D]`` (the JAX package's
-    ``dropout_broadcast``).  Raises without a generator."""
+    ``dropout_broadcast``).  ``rows`` (data parallelism) draws at the
+    global batch's leading size and keeps this rank's rows; ``heads``
+    ``(lo, hi, total)`` (tensor parallelism of attention probabilities
+    ``[B, H, L, L]``) draws every head and keeps ``lo:hi``.  Raises without
+    a generator."""
     if rate == 0.0:
         return x
     if gen is None:
         raise RuntimeError("dropout in train mode needs a generator: call "
                            "set_dropout_generator(model, generator) first")
-    shape = (x.shape[0], 1, x.shape[2]) if broadcast else x.shape
+    shape = [x.shape[0], 1, x.shape[2]] if broadcast else list(x.shape)
+    idx = None
+    if rows is not None and rows.count != rows.total:
+        shape[0], idx = rows.select(x.shape[0], x.device)
+    if heads is not None:
+        shape[1] = heads[2]
     keep = torch.rand(shape, generator=gen, device=x.device) >= rate
+    if idx is not None:
+        keep = keep[idx]
+    if heads is not None:
+        keep = keep[:, heads[0]: heads[1]]
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
 
 class Dropout(nn.Module):
     """Dropout whose draws come from the generator that
-    ``set_dropout_generator`` hands it; the identity in eval mode."""
+    ``set_dropout_generator`` hands it; the identity in eval mode.
+    ``heads`` is set by ``parallel.tp.shard_model`` on the attention
+    probabilities' dropout of a tensor-parallel model."""
 
     def __init__(self, rate: float, broadcast: bool = False):
         super().__init__()
         self.rate, self.broadcast = rate, broadcast
         self.generator: torch.Generator | None = None
+        self.rows: BatchRows | None = None
+        self.heads: tuple[int, int, int] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return x
-        return dropout(x, self.rate, self.generator, self.broadcast)
+        return dropout(x, self.rate, self.generator, self.broadcast,
+                       self.rows, self.heads)
 
 
-def set_dropout_generator(model: nn.Module,
-                          gen: torch.Generator | None) -> None:
+def set_dropout_generator(model: nn.Module, gen: torch.Generator | None,
+                          rows: BatchRows | None = None) -> None:
     """Give every ``Dropout`` of ``model`` the generator to draw from (one
     per training step: the trainer seeds it from the run seed and the
-    step)."""
+    step) and, under data parallelism, the rank's rows of the batch."""
     for mod in model.modules():
         if isinstance(mod, Dropout):
             mod.generator = gen
+            mod.rows = rows
 
 
 @torch.no_grad()

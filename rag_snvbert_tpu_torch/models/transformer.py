@@ -9,7 +9,11 @@ the JAX einsum path (:220-233).  The layer stack is an unrolled loop: no
 scan, no remat, and no pad-once residency (:379-399 pads to TPU block
 multiples; the CUDA kernel masks the ragged tail itself).  ``quant`` (the
 model's ``int8_matmuls``) builds every projection as ``ops.quant``'s
-``Int8Dense`` (:191-192, :249-250).
+``Int8Dense`` (:191-192, :249-250).  ``tp_group`` (set by
+``parallel/tp.py``'s ``shard_model``) makes attention and the FFN
+Megatron-parallel: each rank holds whole heads of query/key/value (or
+``qkv``) and a slice of ``w_1``, and the row-parallel ``output`` and
+``w_2`` products are summed over the group.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
-from .layers import Dropout, LayerNorm
+from .layers import Dropout, LayerNorm, row_parallel
 
 
 class MultiHeadAttention(nn.Module):
@@ -47,17 +51,24 @@ class MultiHeadAttention(nn.Module):
             self.key = Dense(dims, dims, dtype)
             self.value = Dense(dims, dims, dtype)
         self.output = Dense(dims, dims, dtype)
+        self.tp_group = None
+        self.local_heads = heads       # this rank's heads (tensor parallel)
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
-        b, l, d = x.shape
-        hd = d // self.heads
+        b, l, _ = x.shape
+        hd = self.dims // self.heads
+        heads = self.local_heads
+        if self.tp_group is not None:
+            from ..parallel.comm import copy_to_group
+
+            x = copy_to_group(x, self.tp_group)
         if self.fused_qkv:
-            qkv = self.qkv(x).reshape(b, l, 3, self.heads, hd)
+            qkv = self.qkv(x).reshape(b, l, 3, heads, hd)
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         else:
             def proj(layer):
-                return layer(x).reshape(b, l, self.heads, hd).transpose(1, 2)
+                return layer(x).reshape(b, l, heads, hd).transpose(1, 2)
 
             q, k, v = proj(self.query), proj(self.key), proj(self.value)
 
@@ -73,8 +84,8 @@ class MultiHeadAttention(nn.Module):
             probs = torch.softmax(score, dim=-1).to(self.dtype)
             probs = self.attn_drop(probs)
             out = torch.matmul(probs, v)
-        out = out.transpose(1, 2).reshape(b, l, d)
-        return self.output(out)
+        out = out.transpose(1, 2).reshape(b, l, heads * hd)
+        return row_parallel(self.output, out, self.tp_group)
 
 
 class FeedForward(nn.Module):
@@ -92,10 +103,15 @@ class FeedForward(nn.Module):
         self.LayerNorm_0 = LayerNorm(hidden_dims, dtype)
         self.w_2 = Dense(hidden_dims, dims, dtype)
         self.drop = Dropout(dropout, dropout_broadcast)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            from ..parallel.comm import copy_to_group
+
+            x = copy_to_group(x, self.tp_group)
         h = self.LayerNorm_0(F.leaky_relu(self.w_1(x), 0.1))
-        h = F.leaky_relu(self.w_2(h), 0.1)
+        h = F.leaky_relu(row_parallel(self.w_2, h, self.tp_group), 0.1)
         return self.drop(h)
 
 

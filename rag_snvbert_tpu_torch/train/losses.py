@@ -10,6 +10,8 @@ package.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
@@ -31,14 +33,17 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     return torch.sum(loss * mask.float())
 
 
-def masked_mse(a: torch.Tensor, b: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
+def masked_mse(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
+               count: torch.Tensor | None = None) -> torch.Tensor:
     """Reconstruction MSE over masked positions (mean over contributing
     elements), matching nn.MSELoss on ``output[3][masks]``
-    (pretrain_with_val_optimized.py:221-222)."""
+    (pretrain_with_val_optimized.py:221-222).  ``count``: the number of
+    contributing positions when ``mask`` is one rank's share of a larger
+    batch (the mean is then this share's part of the whole batch's)."""
     m = mask.float()[..., None]
     diff = (a.float() - b.float()) ** 2
-    denom = torch.clamp(torch.sum(m) * a.shape[-1], min=1.0)
+    n = torch.sum(m) if count is None else count
+    denom = torch.clamp(n * a.shape[-1], min=1.0)
     return torch.sum(diff * m) / denom
 
 
@@ -51,10 +56,17 @@ MIN_RECON_LOSS = 0.01
 
 
 def total_loss(outputs: list, labels: dict, mask: torch.Tensor,
-               gamma: float = 2.0, use_recon: bool = False
+               gamma: float = 2.0, use_recon: bool = False,
+               data_sum: Callable[[torch.Tensor], torch.Tensor] | None = None
                ) -> tuple[torch.Tensor, dict]:
     """Combined training loss: 3*hap1 + 3*hap2 + 4*gt focal, with the
-    optional recon-gated variant (pretrain_with_val_optimized.py:215-231)."""
+    optional recon-gated variant (pretrain_with_val_optimized.py:215-231).
+
+    ``data_sum`` (data parallelism: a detached sum over the data ranks)
+    makes the return this rank's share of the global batch's loss, so the
+    shares add up to it: the focal terms are masked sums already; the
+    reconstruction means take the global count of masked positions, and
+    the gate compares the global reconstruction losses."""
     hap1 = focal_loss(outputs[0], labels["hap_1"], mask, gamma)
     hap2 = focal_loss(outputs[1], labels["hap_2"], mask, gamma)
     gt = focal_loss(outputs[2], labels["gt"], mask, gamma)
@@ -62,11 +74,13 @@ def total_loss(outputs: list, labels: dict, mask: torch.Tensor,
     plain_total = HAP_WEIGHT * (hap1 + hap2) + GT_WEIGHT * gt
     if not use_recon:
         return plain_total, aux
-    r1 = masked_mse(outputs[3], outputs[5], mask)
-    r2 = masked_mse(outputs[4], outputs[6], mask)
+    count = None if data_sum is None else data_sum(mask.float().sum())
+    r1 = masked_mse(outputs[3], outputs[5], mask, count)
+    r2 = masked_mse(outputs[4], outputs[6], mask, count)
     aux["recon_loss"] = r1 + r2
     w = RECON_WEIGHTS
     recon_total = (w[0] * hap1 + w[1] * hap2 + w[2] * gt
                    + w[3] * r1 + w[4] * r2)
-    use_gated = (r1 > MIN_RECON_LOSS) & (r2 > MIN_RECON_LOSS)
+    g1, g2 = (r1, r2) if data_sum is None else (data_sum(r1), data_sum(r2))
+    use_gated = (g1 > MIN_RECON_LOSS) & (g2 > MIN_RECON_LOSS)
     return torch.where(use_gated, recon_total, plain_total), aux

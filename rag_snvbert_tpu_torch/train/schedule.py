@@ -81,6 +81,31 @@ class Optimizer:
         self.mu, self.nu = zeros(), zeros()
         self.acc = zeros() if accum_steps > 1 else None
         self.last_lr = float("nan")
+        self.tp_group = None
+        self.tp_sharded: list[bool] = []
+
+    def set_tensor_parallel(self, group, sharded: list[bool]) -> None:
+        """The parameters are a tensor-parallel rank's (``parallel/tp.py``):
+        ``sharded[i]`` says whether parameter ``i`` is a slice, whose
+        squares the clip norm sums over ``group``; the replicated ones are
+        added once.  The norm is then the full tensors' norm."""
+        self.tp_group, self.tp_sharded = group, list(sharded)
+
+    def grad_norm(self, grads: list[torch.Tensor] | None = None
+                  ) -> torch.Tensor:
+        """The global norm of ``grads`` (default: the parameters'
+        gradients), of the full tensors under tensor parallelism."""
+        grads = self.grads() if grads is None else grads
+        if self.tp_group is None:
+            return global_norm(grads)
+        from ..parallel.comm import all_reduce
+
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        split = sum((s for s, f in zip(sq, self.tp_sharded) if f),
+                    self._scalar(0.0))
+        whole = sum((s for s, f in zip(sq, self.tp_sharded) if not f),
+                    self._scalar(0.0))
+        return torch.sqrt(whole + all_reduce(split, self.tp_group))
 
     def grads(self) -> list[torch.Tensor]:
         return [torch.zeros_like(p) if p.grad is None else p.grad
@@ -127,7 +152,7 @@ class Optimizer:
         differently.  The clip branch is chosen on the device: below the
         limit the gradients are divided and multiplied by 1, which leaves
         them as they are, so nothing is read back to the host."""
-        norm = global_norm(grads)
+        norm = self.grad_norm(grads)
         self.last_lr = self.schedule(self.count)
         self.count += 1
         f32 = dict(dtype=torch.float32)

@@ -12,6 +12,14 @@ every ``accum_steps`` micro-steps).  Nothing here copies to the host.
 The JAX ``train_step_scan`` (:164-188) fuses K steps into one TPU dispatch;
 the port runs K ordinary steps instead (``TrainerConfig.steps_per_dispatch``
 has no effect).
+
+Data parallelism (``data_group``): each rank runs its rows of the global
+batch; the loss is a masked sum, so the gradients, the loss terms and the
+metric counters are summed over the data group (not averaged, as DDP
+would): the update and the stats are then the global batch's.  Only the
+data group is summed: ranks that share a data coordinate (index or model
+ranks) compute the same loss.  A ``ShardedWindowRefContext`` dispatches to
+``retrieve_sharded`` (JAX step.py:83-95).
 """
 
 from __future__ import annotations
@@ -21,10 +29,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..models.layers import set_dropout_generator
+from ..models.layers import BatchRows, set_dropout_generator
+from ..parallel.comm import all_reduce
 from . import losses, metrics
 from .retrieval import (TokenWindowContext, WindowRefContext, retrieve,
                         retrieve_tokens)
+from .sharded_retrieval import ShardedWindowRefContext, retrieve_sharded
 from .schedule import Optimizer, global_norm  # noqa: F401  (re-export)
 
 
@@ -38,6 +48,8 @@ class StepConfig:
     # ``use_pallas=False``); True takes the l2_topk (embedding) or
     # l2_topk_rf (token) kernel on the card.
     use_kernel: bool = True
+    # the candidate merge of a sharded context: "all_gather" | "ring"
+    ctx_merge: str = "all_gather"
 
 
 def _labels(batch: dict) -> dict:
@@ -72,23 +84,29 @@ def expand_packed(batch: dict) -> dict:
     return out
 
 
-Context = WindowRefContext | TokenWindowContext | None
+Context = (WindowRefContext | TokenWindowContext | ShardedWindowRefContext
+           | None)
 
 
-def _forward(model, batch: dict, ctx: Context,
-             cfg: StepConfig) -> tuple[torch.Tensor, dict, dict]:
+def _forward(model, batch: dict, ctx: Context, cfg: StepConfig,
+             data_group=None) -> tuple[torch.Tensor, dict, dict]:
     batch = expand_packed(batch)
     if isinstance(ctx, TokenWindowContext):
         # V17: retrieval returns raw token segments, which the model
         # (BERTWithRAG) re-encodes.
         batch = retrieve_tokens(batch, ctx, cfg.rag_k, cfg.use_kernel)
+    elif isinstance(ctx, ShardedWindowRefContext):
+        batch = retrieve_sharded(model.embed, batch, ctx, cfg.rag_k,
+                                 cfg.ctx_merge, cfg.use_kernel)
     elif ctx is not None:
         batch = retrieve(model.embed, batch, ctx, cfg.rag_k, cfg.use_kernel)
     outputs = model(batch)
     labels = _labels(batch)
     mask = batch["mask"]
+    data_sum = None if data_group is None else (
+        lambda t: all_reduce(t.detach().clone(), data_group))
     loss, aux = losses.total_loss(outputs, labels, mask, cfg.focal_gamma,
-                                  cfg.use_recon)
+                                  cfg.use_recon, data_sum)
     counters = metrics.batch_counters(outputs, labels, mask, batch["af"],
                                       cfg.rare_threshold)
     return loss, aux, counters
@@ -106,6 +124,52 @@ def _accumulate(acc: dict | None, stats: dict) -> dict | None:
             "totals": totals}
 
 
+def _flat_sum(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """``tensors`` summed over ``group`` in one collective per dtype (new
+    tensors, in order)."""
+    out: list[torch.Tensor | None] = [None] * len(tensors)
+    # one order on every rank (a set of dtypes iterates by hash)
+    for dt in sorted({t.dtype for t in tensors}, key=str):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dt]
+        flat = all_reduce(torch.cat([tensors[i].reshape(-1) for i in idx]),
+                          group)
+        pos = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[pos: pos + n].view_as(tensors[i])
+            pos += n
+    return out
+
+
+def _sum_stats(loss, aux: dict, counters: dict, group):
+    """The loss terms and counters of every data rank, summed."""
+    leaves: list[torch.Tensor] = []
+
+    def collect(t):
+        for v in t.values():
+            collect(v) if isinstance(v, dict) else leaves.append(v)
+
+    collect(counters)
+    summed = iter(_flat_sum([loss.detach(), *(v.detach() for v in
+                                              aux.values()), *leaves], group))
+    loss = next(summed)
+    aux = {k: next(summed) for k in aux}
+
+    def rebuild(t):
+        return {k: rebuild(v) if isinstance(v, dict) else next(summed)
+                for k, v in t.items()}
+
+    return loss, aux, rebuild(counters)
+
+
+def sum_gradients(optimizer: Optimizer, group) -> None:
+    """Each parameter's gradient summed over the data ``group`` (a missing
+    one counts as zeros), in one collective."""
+    grads = _flat_sum([g.float() for g in optimizer.grads()], group)
+    for p, g in zip(optimizer.params, grads):
+        p.grad = g.to(p.dtype)
+
+
 def step_generator(seed: int, step: int,
                    device: torch.device) -> torch.Generator:
     """The dropout generator of micro-step ``step`` of a run seeded
@@ -119,21 +183,27 @@ def step_generator(seed: int, step: int,
 def train_step(model, optimizer: Optimizer, batch: dict,
                ctx: Context, cfg: StepConfig,
                generator: torch.Generator | None = None,
-               acc: dict | None = None):
+               acc: dict | None = None, data_group=None,
+               rows: BatchRows | None = None):
     """One micro-step in train mode with dropout drawn from ``generator``
     (needed when the model has dropout).  Returns the step's device stats
     ``{"loss", "hap_loss", "gt_loss", "counters", "grad_norm"}`` (the norm
     of this micro-step's raw gradient), or ``(stats, acc')`` when given the
-    epoch accumulator ``acc``."""
+    epoch accumulator ``acc``.  ``data_group``: sum the gradients and stats
+    over the data ranks; ``rows``: this rank's rows of the global batch,
+    for dropout."""
     model.train()
-    set_dropout_generator(model, generator)
+    set_dropout_generator(model, generator, rows)
     try:
-        loss, aux, counters = _forward(model, batch, ctx, cfg)
+        loss, aux, counters = _forward(model, batch, ctx, cfg, data_group)
         loss.backward()
     finally:
         set_dropout_generator(model, None)
     with torch.no_grad():
-        grad_norm = global_norm(optimizer.grads())
+        if data_group is not None:
+            sum_gradients(optimizer, data_group)
+            loss, aux, counters = _sum_stats(loss, aux, counters, data_group)
+        grad_norm = optimizer.grad_norm()
     optimizer.step()
     optimizer.zero_grad()
     stats = {"loss": loss.detach(),
@@ -146,11 +216,14 @@ def train_step(model, optimizer: Optimizer, batch: dict,
 
 @torch.no_grad()
 def eval_step(model, batch: dict, ctx: Context,
-              cfg: StepConfig, acc: dict | None = None):
+              cfg: StepConfig, acc: dict | None = None, data_group=None):
     """Forward-only step in eval mode; with ``acc`` returns
-    ``(stats, acc')``."""
+    ``(stats, acc')``; ``data_group`` sums the stats over the data
+    ranks."""
     model.eval()
-    loss, aux, counters = _forward(model, batch, ctx, cfg)
+    loss, aux, counters = _forward(model, batch, ctx, cfg, data_group)
+    if data_group is not None:
+        loss, aux, counters = _sum_stats(loss, aux, counters, data_group)
     stats = {"loss": loss, **aux, "counters": counters}
     if acc is None:
         return stats

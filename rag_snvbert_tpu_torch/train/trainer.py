@@ -26,6 +26,19 @@ them on the card unless given ``device="cpu"``).  Batches are assembled on
 a host thread (``data/prefetch.py``) and copied to the card from pinned
 memory on that thread; the epoch's metric counters stay on the device and
 reach the host once per epoch.
+
+``mesh`` (``parallel.make_mesh``; JAX trainer.py:79-87, 191-263, 303-308,
+384-412, 553-563): every rank of the process group runs the same trainer.
+Each data rank assembles its rows of every global batch
+(``epoch_batches(host_id=, n_hosts=)``); gradients, losses and counters
+are summed over the data group, so the metrics, early stopping and the
+updates are the single-process run's on every rank.  An ``index`` axis
+above 1 shards the window context (``shard_ctx="auto"``,
+``train/sharded_retrieval.py``), merged by ``ctx_merge``; a ``model`` axis
+above 1 splits the encoder (``parallel/tp.py``).  Only rank 0 writes the
+CSV, the event log and the checkpoints, which hold full tensors: a
+checkpoint saved under tensor parallelism restores on one device and the
+other way round.
 """
 
 from __future__ import annotations
@@ -44,11 +57,16 @@ import torch
 from ..data import masking
 from ..data.pipeline import WindowDataset
 from ..data.prefetch import prefetch_iter
+from ..models.layers import BatchRows
+from ..parallel import tp
+from ..parallel.mesh import (DATA_AXIS, INDEX_AXIS, MODEL_AXIS, axis_group,
+                             axis_rank, axis_size, is_writer)
 from ..utils.timing import start_trace, stop_trace
 from . import metrics as metrics_lib
 from .retrieval import (build_token_window_ctx, check_int8_vocab,
                         encode_window_refs)
 from .schedule import make_optimizer
+from .sharded_retrieval import encode_window_refs_sharded
 from .step import StepConfig, eval_step, step_generator, train_step
 
 
@@ -56,11 +74,9 @@ from .step import StepConfig, eval_step, step_generator, train_step
 class TrainerConfig:
     """The JAX package's fields, so one config means one run in both.
     Fields with no effect in the port: ``rng_impl`` (dropout draws come
-    from a torch generator per step), ``ctx_merge`` (sharded context only),
-    ``steps_per_dispatch`` (a TPU dispatch device: the port runs the steps
-    one by one, with the same semantics), ``async_checkpoints`` (saves are
-    synchronous).  ``shard_ctx=True`` raises: its slice is not ported
-    yet."""
+    from a torch generator per step), ``steps_per_dispatch`` (a TPU
+    dispatch device: the port runs the steps one by one, with the same
+    semantics), ``async_checkpoints`` (saves are synchronous)."""
 
     epochs: int = 20
     batch_size: int = 24
@@ -90,8 +106,11 @@ class TrainerConfig:
     # still training; costs a second resident context (1.6 GB at flagship
     # scale).  Staleness when on: params up to one window older.
     prefetch_ctx: bool = False
-    shard_ctx: bool | str = "auto"     # True waits for Queue A 7
-    ctx_merge: str = "all_gather"      # no effect here
+    # Shard the window context over the mesh's ``index`` axis
+    # (train/sharded_retrieval.py); "auto": when that axis is above 1.
+    shard_ctx: bool | str = "auto"
+    # The sharded context's candidate merge: "all_gather" | "ring".
+    ctx_merge: str = "all_gather"
     # Host-side batch prefetch depth (data/prefetch.py); 0 assembles and
     # copies each batch on the training thread.
     prefetch_batches: int = 2
@@ -186,14 +205,23 @@ class Trainer:
     def __init__(self, model, train_ds: WindowDataset, cfg: TrainerConfig,
                  val_ds: WindowDataset | None = None, mesh=None,
                  train_sample_ids=None, val_sample_ids=None):
-        if mesh is not None or cfg.shard_ctx is True:
-            raise NotImplementedError(
-                "mesh/shard_ctx: data-parallel and sharded-context training "
-                "wait for the port's torch.distributed slice (ROADMAP "
-                "Queue A 7)")
         if cfg.rag_mode not in ("embedding", "token", "none"):
             raise ValueError(f"unknown rag_mode {cfg.rag_mode!r}")
-        self.model = model
+        self.mesh = mesh
+        self.n_data = axis_size(mesh, DATA_AXIS)
+        self.data_rank = axis_rank(mesh, DATA_AXIS)
+        self.data_group = (axis_group(mesh, DATA_AXIS) if mesh is not None
+                           else None)
+        for bs in (cfg.batch_size, cfg.val_batch_size):
+            if bs % self.n_data:
+                raise ValueError(f"batch size {bs} does not divide over the "
+                                 f"{self.n_data} data ranks")
+        self.shard_ctx = (cfg.shard_ctx if isinstance(cfg.shard_ctx, bool)
+                          else axis_size(mesh, INDEX_AXIS) > 1)
+        if self.shard_ctx and mesh is None:
+            raise ValueError("shard_ctx requires a mesh with an 'index' axis")
+        self.writer = is_writer()
+        self.model = tp.shard_model(model, mesh)
         self.device = next(model.parameters()).device
         if cfg.rag_mode == "token" and self.device.type == "cuda":
             check_int8_vocab(model)
@@ -212,10 +240,14 @@ class Trainer:
         self.stopper = EarlyStopping(cfg.patience, cfg.min_delta)
         self.step_cfg = StepConfig(
             focal_gamma=cfg.focal_gamma, use_recon=cfg.use_recon_loss,
-            rag_k=cfg.rag_k, rare_threshold=cfg.rare_threshold)
+            rag_k=cfg.rag_k, rare_threshold=cfg.rare_threshold,
+            ctx_merge=cfg.ctx_merge)
         self.optimizer = make_optimizer(model, cfg.init_lr, cfg.max_lr,
                                         cfg.warmup_steps,
                                         accum_steps=cfg.grad_accum_steps)
+        if axis_size(mesh, MODEL_AXIS) > 1:
+            self.optimizer.set_tensor_parallel(axis_group(mesh, MODEL_AXIS),
+                                               tp.sharded_flags(model))
         os.makedirs(cfg.output_dir, exist_ok=True)
         self.csv_path = os.path.join(cfg.output_dir, "metrics.csv")
         self.log_path = os.path.join(cfg.output_dir, "events.jsonl")
@@ -249,11 +281,14 @@ class Trainer:
                 valid=torch.from_numpy(valid).to(dev))
         was_training = self.model.training
         self.model.eval()
+        args = (self.model.embed, torch.from_numpy(toks).to(dev).long(),
+                torch.from_numpy(af).to(dev), torch.from_numpy(wmask).to(dev))
         try:
-            return encode_window_refs(
-                self.model.embed, torch.from_numpy(toks).to(dev).long(),
-                torch.from_numpy(af).to(dev), torch.from_numpy(wmask).to(dev),
-                valid=torch.from_numpy(valid).to(dev))
+            if self.shard_ctx:
+                return encode_window_refs_sharded(
+                    *args, self.mesh, valid=torch.from_numpy(valid).to(dev))
+            return encode_window_refs(*args,
+                                      valid=torch.from_numpy(valid).to(dev))
         finally:
             self.model.train(was_training)
 
@@ -282,7 +317,7 @@ class Trainer:
         n_batches = 0
         t0 = time.time()
         self.step_marks = [] if cfg.record_step_times else None
-        want_prof = bool(train and cfg.profile_dir
+        want_prof = bool(train and cfg.profile_dir and self.writer
                          and epoch == self.start_epoch)
         prof = None
         prof_start_n = 0
@@ -292,7 +327,12 @@ class Trainer:
         use_rag = ds.ref_vcf is not None and cfg.rag_mode != "none"
         batch_iter = ds.epoch_batches(bs, epoch, level, shuffle=train,
                                       seed=seed, sample_ids=sample_ids,
-                                      packed=True)
+                                      host_id=self.data_rank,
+                                      n_hosts=self.n_data, packed=True)
+        per = bs // self.n_data
+        rows = (None if self.mesh is None else BatchRows.stacked(
+            self.data_rank * per, per, bs, cfg.rag_k,
+            token_rag=cfg.rag_mode == "token"))
         to_device = lambda mb: (mb[0], self._put_batch(mb[1]))  # noqa: E731
         if cfg.prefetch_batches > 0:
             batch_iter = prefetch_iter(batch_iter, size=cfg.prefetch_batches,
@@ -314,11 +354,12 @@ class Trainer:
             if train:
                 gen = step_generator(cfg.seed, self.step, self.device)
                 stats, acc = train_step(self.model, self.optimizer, batch,
-                                        ctx, self.step_cfg, gen, acc)
+                                        ctx, self.step_cfg, gen, acc,
+                                        self.data_group, rows)
                 self.step += 1
             else:
                 stats, acc = eval_step(self.model, batch, ctx,
-                                       self.step_cfg, acc)
+                                       self.step_cfg, acc, self.data_group)
             n_batches += 1
             if self.step_marks is not None:
                 self.step_marks.append(time.time())
@@ -393,9 +434,15 @@ class Trainer:
         temporary file), point ``best`` at it when ``is_best``, and drop
         epoch dirs beyond ``keep_checkpoints`` (the best is always kept)."""
         path = self._ckpt_dir(epoch)
+        opt = self.optimizer.state_dict()
+        # full tensors (a collective under tensor parallelism: every rank)
+        params = tp.gather_full(self.model.state_dict(), self.mesh)
+        opt = {k: (tp.gather_full(v, self.mesh) if isinstance(v, dict)
+                   else v) for k, v in opt.items()}
+        if not self.writer:
+            return
         os.makedirs(path, exist_ok=True)
-        payload = {"params": self.model.state_dict(),
-                   "opt_state": self.optimizer.state_dict(),
+        payload = {"params": params, "opt_state": opt,
                    "step": self.step, "epoch": epoch, "level": self.level,
                    "es_best": float(self.stopper.best),
                    "es_best_epoch": self.stopper.best_epoch,
@@ -436,8 +483,10 @@ class Trainer:
         (train_embedding_rag.py:154-192, 325-336) from a checkpoint dir."""
         state = torch.load(os.path.join(path, "state.pt"),
                            map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        self.model.load_state_dict(tp.shard_full(state["params"], self.mesh))
+        self.optimizer.load_state_dict(
+            {k: (tp.shard_full(v, self.mesh) if isinstance(v, dict) else v)
+             for k, v in state["opt_state"].items()})
         self.step = int(state["step"])
         self.stopper.best = float(state["es_best"])
         self.stopper.best_epoch = int(state["es_best_epoch"])
@@ -462,7 +511,8 @@ class Trainer:
                                load_params_checkpoint)
 
         loaded = load_params_checkpoint(path)
-        cur, new = leaf_shapes(flax_params_of(self.model)), leaf_shapes(loaded)
+        full = tp.gather_full(self.model.state_dict(), self.mesh)
+        cur, new = leaf_shapes(flax_params_of(full)), leaf_shapes(loaded)
         if cur != new:
             missing = sorted(set(cur) - set(new))[:5]
             extra = sorted(set(new) - set(cur))[:5]
@@ -471,19 +521,29 @@ class Trainer:
             raise ValueError(
                 f"checkpoint params do not match the model: "
                 f"missing={missing} extra={extra} shape_mismatch={shapes}")
-        load_flax_params(self.model, loaded)
+        if self.mesh is None:
+            load_flax_params(self.model, loaded)
+            return
+        state = {k: v.clone() for k, v in full.items()}
+        load_flax_params(state, loaded)
+        self.model.load_state_dict(tp.shard_full(state, self.mesh))
 
     # ---- logging ----
 
     def _log(self, record: dict) -> None:
+        if not self.writer:
+            return
         record = {**record, "ts": time.time()}
         with open(self.log_path, "a", encoding="utf-8") as f:
             f.write(json.dumps(record) + "\n")
 
     def _write_csv_row(self, row: dict) -> None:
+        if not self.writer:
+            return
         exists = os.path.exists(self.csv_path)
         with open(self.csv_path, "a", newline="", encoding="utf-8") as f:
             w = csv.DictWriter(f, fieldnames=list(row.keys()))
             if not exists:
                 w.writeheader()
             w.writerow(row)
+

@@ -223,7 +223,11 @@ def _orbax(tmp_path):
 # Numbered as the cases were before --init-from, --profile-dir and
 # converted checkpoints were ported (cases 0, 5, 8 and 9), so each case
 # keeps its id.  An orbax checkpoint of the JAX package stays refused: its
-# message names the route through the JAX package's export-ckpt.
+# message names the route through the JAX package's export-ckpt.  The A7
+# cases (the mesh flags) are ported: each now starts a world of local
+# ranks (gloo, since --device cpu), recorded here instead of run (the
+# mesh runs themselves are tests/test_torch_cli_mesh.py's); --shard-ctx on
+# without an index axis raises as the JAX trainer's assertion does.
 REFUSED = [
     (1, "train", ["--data-parallel", "2"], "A7"),
     (2, "train", ["--index-shards", "2"], "A7"),
@@ -238,7 +242,7 @@ REFUSED = [
 @pytest.mark.parametrize("verb,extra,item", [r[1:] for r in REFUSED],
                          ids=[f"{v}-{i}-{n}" for n, v, _, i in REFUSED])
 def test_flags_not_ported_name_their_roadmap_item(files, tmp_path, verb,
-                                                  extra, item):
+                                                  extra, item, monkeypatch):
     if verb == "train":
         argv = _train_argv(files, str(tmp_path / "run"), *extra)
     else:
@@ -247,6 +251,22 @@ def test_flags_not_ported_name_their_roadmap_item(files, tmp_path, verb,
                          str(tmp_path / "x.vcf")] if verb == "infer" else []),
                 *_model_argv(files, model_path,
                              *(() if callable(extra) else extra))]
+    if item == "A7":
+        from rag_snvbert_tpu_torch.parallel import launch
+
+        started = []
+        monkeypatch.setattr(launch, "run_with_local_ranks",
+                            lambda fn, world, args, backend:
+                            started.append((world, backend, args)))
+        if "--shard-ctx" in extra:
+            with pytest.raises(ValueError, match="shard_ctx requires a mesh"):
+                main(argv)
+            assert not started
+        else:
+            main(argv)
+            assert started == [(2, "gloo", (argv,))]
+        assert not os.path.exists(tmp_path / "x.vcf")
+        return
     with pytest.raises(SystemExit, match=f"Queue A, item {item}\\)"):
         main(argv)
     if callable(extra):           # the orbax case names its route

@@ -169,10 +169,25 @@ def test_prepare_data_writes_the_jax_files(files):
             assert open(a).read() == open(b).read(), name
 
 
-def test_index_shards_names_its_roadmap_item(dbs, files):
-    with pytest.raises(SystemExit, match="Queue A, item A7"):
-        tmain(["query", "--vcf", files["tgt"], "--db", dbs["f32", True],
-               "--index-shards", "2", "--device", "cpu"])
+def test_index_shards_names_its_roadmap_item(dbs, files, monkeypatch):
+    """``--index-shards`` is ported (its runs are
+    tests/test_torch_cli_mesh.py's): the verb starts two local gloo ranks
+    (recorded here, not run), and the modes it does not shard are refused
+    as the JAX command line refuses them."""
+    from rag_snvbert_tpu_torch.parallel import launch
+
+    started = []
+    monkeypatch.setattr(launch, "run_with_local_ranks",
+                        lambda fn, world, args, backend:
+                        started.append((world, backend)))
+    argv = ["query", "--vcf", files["tgt"], "--db", dbs["f32", True],
+            "--index-shards", "2", "--device", "cpu"]
+    tmain(argv)
+    assert started == [(2, "gloo")]
+    monkeypatch.setattr(launch, "run_with_local_ranks",
+                        lambda fn, world, args, backend: fn(0, *args))
+    with pytest.raises(SystemExit, match="--index-shards supports"):
+        tmain(argv + ["--mode", "partial"])
 
 
 def test_cli_runs_on_the_card_unless_told_otherwise(files, monkeypatch,

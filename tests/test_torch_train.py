@@ -94,9 +94,18 @@ def test_window_batches_are_bit_identical(packed):
 
 
 def test_multi_host_input_raises():
+    """Multi-host input is ported (tests/test_torch_multihost.py): two
+    hosts' rows stitch into the single-host batch; a host count that does
+    not divide the batch raises."""
     _, tds, _ = _datasets()
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        next(tds.epoch_batches(4, 0, 0, n_hosts=2))
+    one = next(tds.epoch_batches(4, 0, 0))[1]
+    parts = [next(tds.epoch_batches(4, 0, 0, host_id=h, n_hosts=2))[1]
+             for h in range(2)]
+    for k, v in one.items():
+        np.testing.assert_array_equal(np.concatenate([p[k] for p in parts]),
+                                      v)
+    with pytest.raises(ValueError, match="does not divide"):
+        next(tds.epoch_batches(4, 0, 0, n_hosts=3))
 
 
 # ---- losses, metrics, schedule ----
@@ -514,7 +523,9 @@ def test_resumed_run_draws_what_an_uninterrupted_one_would(tmp_path):
 
 
 def test_trainer_paths_left_for_later_slices_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
+    # shard_ctx is ported; without a mesh to shard over it raises, as the
+    # JAX trainer's assertion does
+    with pytest.raises(ValueError, match="shard_ctx requires a mesh"):
         _trainer(tmp_path, 1, shard_ctx=True)
     with pytest.raises(ValueError, match="rag_mode"):
         _trainer(tmp_path, 1, rag_mode="tokens")
