@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``rag_snvbert_tpu_torch/csrc`` (one nvcc
 per source, started together) and holds each kernel against its plain
-PyTorch version at the main paths' shapes.  Then it drives ten paths
+PyTorch version at the main paths' shapes.  Then it drives eleven paths
 with seeded random weights or data, each with the launch counts set to 0
 just before it and read just after:
   - the int8 probe tools (``python -m rag_snvbert_tpu_torch.tools.probe_mxu``,
@@ -25,6 +25,14 @@ just before it and read just after:
     width (192d, 10 layers, 6 heads, L = 1030, float32, the same context
     size): two requests (batch 32) and one epoch of ``Trainer.fit``
     (batch 16, no accumulation);
+  - ``remat`` (``phase_remat``): each mode at ``tpu_default`` width (batch
+    24, residual dropout on) bit-identical to no remat under deterministic
+    algorithms, with the attention forward launched again in the backward
+    pass; ``tpu_scan`` through ``Trainer`` at the first batch of 128, 160,
+    192 whose measured no-remat peak, extrapolated, exceeds the card (two
+    micro-steps, an async checkpoint overlapping the second, ``finalize``
+    and a restore); V17 training at batch 16 with ``True`` and
+    ``"save_most"``; the alternative fusions at 384d against the CPU;
   - the offline index at the genotype-index shape (1024 queries of 2040
     columns against 664,648 rows, k = 10): packed (pack 8), int8, bf16 and
     float32 ``FlatL2Index`` searches and masked searches, save/load round
@@ -168,6 +176,15 @@ INT8_TRAIN_DIR = "runs/chip_smoke_int8_train"
 # decimal, plus one float32 rounding of the native formatter's v * 1000.
 CLI_DIR = "runs/chip_smoke_cli"
 HDS_TOL = 5e-4 + 1e-6
+# phase_remat: remat against no remat under deterministic algorithms is
+# bit for bit (the recompute redraws the forward's dropout masks); the
+# batch that only fits with remat is the first of these whose no-remat
+# peak, extrapolated from two measured batches, exceeds the card; the
+# alternative fusions on the card against the CPU at
+# tests/test_torch_modules.py's float32 tolerance.
+REMAT_BATCHES = (128, 160, 192)
+REMAT_DIR = "runs/chip_smoke_remat"
+FUSION_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1917,7 +1934,8 @@ def _per_tensor_step(opt, grads) -> None:
     """``Optimizer.step`` as a loop over the tensors, one formula each (the
     optimizer before its multi-tensor form, but for the accumulation's
     divisor, a device tensor as in the optimizer: the formulas
-    test_optimizer_matches_optax pins on the CPU)."""
+    test_optimizer_matches_optax pins on the CPU), with optax ``adamw``'s
+    decoupled decay ``wd * p`` added to the Adam direction."""
     if opt.acc is not None:
         n = opt.mini_step
         n1 = torch.tensor(n + 1, dtype=torch.float32, device="cuda")
@@ -1938,6 +1956,8 @@ def _per_tensor_step(opt, grads) -> None:
         mu.copy_((1 - opt.b1) * g + opt.b1 * mu)
         nu.copy_((1 - opt.b2) * torch.square(g) + opt.b2 * nu)
         u = (mu / bc1) / (torch.sqrt(nu / bc2) + opt.eps)
+        if opt.weight_decay:
+            u = u + p * opt.weight_decay
         p.copy_(p + -lr * u)
     if opt.acc is not None:
         for a in opt.acc:
@@ -1974,8 +1994,8 @@ def _optimizer_check(opt, grad_scale: float, clipped: bool) -> None:
             for key in ("params", "mu", "nu", "acc")}
     print(f"optimizer: {opt.accum_steps} micro-steps with an update over "
           f"{len(opt.params)} tensors (mean gradient norm {norm:.3g}, clip "
-          f"{opt.clip_norm}), multi-tensor against per-tensor on the card, "
-          f"bit for bit: {same}")
+          f"{opt.clip_norm}, weight decay {opt.weight_decay}), multi-tensor "
+          f"against per-tensor on the card, bit for bit: {same}")
     check(opt.count == ref.count and all(same.values()), "the optimizer's "
           "multi-tensor update differs from the per-tensor one")
 
@@ -2118,6 +2138,16 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     three.count = opt.count
     _optimizer_check(three, grad_scale=1e-6, clipped=False)
     del three
+    # optax adamw's decoupled weight decay, from a copy of the trained state
+    decay = Optimizer([(n, p.detach().clone()) for n, p in
+                       zip(opt.names, opt.params)], accum_steps=2,
+                      weight_decay=0.01)
+    for key in ("mu", "nu"):
+        for dst, src in zip(getattr(decay, key), getattr(opt, key)):
+            dst.copy_(src)
+    decay.count = opt.count
+    _optimizer_check(decay, grad_scale=1e-2, clipped=True)
+    del decay
 
     # (iii) one batch, dropout off: the kernel path against the plain path
     # on the card (same weights: attention in plain torch math with float32
@@ -2428,6 +2458,367 @@ def phase_token_training(profile: bool = False) -> dict[str, int]:
     check(loss_rel <= TOKEN_LOSS_TOL and max(rels.values()) <= TOKEN_GRAD_TOL
           and all(bool(torch.isfinite(g).all()) for g in k_grads.values()),
           "token training gradients disagree with the plain search path")
+    return counts
+
+
+def _train_bundle(n_samples: int):
+    """phase_training's bundle (2008 reference haplotypes, two windows of
+    1020 sites) with ``n_samples`` training samples."""
+    from rag_snvbert_tpu_torch.data.pipeline import WindowDataset
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+
+    bundle = make_bundle(n_train_samples=n_samples, n_ref_samples=1004,
+                         n_sites=2 * 1020, n_windows=2, seed=23)
+    return bundle, WindowDataset(bundle.train, bundle.panel, bundle.freq,
+                                 bundle.window.window_info, bundle.vocab,
+                                 ref_vcf=bundle.ref, seq_len=1030)
+
+
+def _remat_run(cfg, vocab: int, batch, ctx_of, timed: int = 5,
+               profile: str | None = None) -> dict:
+    """A fresh model of ``cfg`` (seed 0, its dropout on): under
+    deterministic algorithms one micro-step with step 0's generator and an
+    update (accumulation 1, the preset's peak lr): its loss, gradients,
+    generator state after backward, the parameters after the update and
+    the launch counts; then ``timed`` warm micro-steps (the default,
+    non-deterministic algorithms) with their median ms and the peak device
+    memory, in all and above what was resident before them.  ``profile``
+    (a label): two more micro-steps under torch.profiler, printed."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import build_model
+    from rag_snvbert_tpu_torch.models.layers import set_dropout_generator
+    from rag_snvbert_tpu_torch.train import step
+    from rag_snvbert_tpu_torch.train.schedule import make_optimizer
+
+    model = build_model(cfg, vocab, seed=0)
+    dev = next(model.parameters()).device
+    ctx = ctx_of(model)
+    opt = make_optimizer(model, cfg.max_lr, cfg.max_lr, 1)
+    out = {}
+    with _deterministic():
+        ops.reset_launches()
+        model.train()
+        gen = step.step_generator(0, 0, dev)
+        set_dropout_generator(model, gen)
+        loss, _, _ = step._forward(model, batch, ctx, step.StepConfig())
+        loss.backward()
+        set_dropout_generator(model, None)
+        # kept on the host, so that every mode's timed steps below start
+        # from the same resident device memory
+        out["loss"] = loss.detach().cpu()
+        out["grads"] = [p.grad.detach().cpu() for p in opt.params]
+        out["gen"] = gen.get_state()
+        opt.step()
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        out["launches"] = ops.launch_counts()
+        out["params"] = [p.detach().cpu() for p in opt.params]
+    times = []
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for i in range(timed + 1):
+        gen = step.step_generator(0, 100 + i, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step.train_step(model, opt, batch, ctx, step.StepConfig(), gen)
+        torch.cuda.synchronize()
+        if i:                               # the first one warms up
+            times.append(time.perf_counter() - t)
+    _add(out["launches"], ops.launch_counts())
+    out["ms"] = statistics.median(times) * 1e3
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["act_gb"] = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as trace
+
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(2):
+                step.train_step(model, opt, batch, ctx, step.StepConfig(),
+                                step.step_generator(0, 200 + i, dev))
+            torch.cuda.synchronize()
+        _print_profile(f"{profile}, two micro-steps", prof,
+                       (time.perf_counter() - t) * 1e3)
+    del model, opt, ctx
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_run(got: dict, ref: dict) -> dict[str, bool]:
+    return {"loss": torch.equal(got["loss"], ref["loss"]),
+            "grads": all(torch.equal(a, b) for a, b in
+                         zip(got["grads"], ref["grads"])),
+            "generator": torch.equal(got["gen"], ref["gen"]),
+            "params": all(torch.equal(a, b) for a, b in
+                          zip(got["params"], ref["params"]))}
+
+
+def _fusions_on_the_card() -> None:
+    """The four alternative fusions and ``pos_norm="none"`` at 384d (L =
+    1030, K = 2) on the card against the same modules on the CPU, float32
+    (TF32 off), within FUSION_TOL relative and absolute."""
+    from rag_snvbert_tpu_torch.models import fusion
+    from rag_snvbert_tpu_torch.models.layers import init_weights
+
+    g = torch.Generator().manual_seed(31)
+    b, k, n, d = 2, 2, 1030, 384
+    orig, rag = torch.randn(b, n, d, generator=g), \
+        torch.randn(b, k, n, d, generator=g)
+    af, pos = torch.rand(b, n, generator=g), torch.rand(b, n, generator=g)
+    cases = {
+        "RareVariantAwareFusion": (fusion.RareVariantAwareFusion(d),
+                                   (orig, rag, af)),
+        "FixedConcatFusion": (fusion.FixedConcatFusion(d), (orig, rag)),
+        "ConcatFusion": (fusion.ConcatFusion(d), (orig, rag)),
+        "CrossAttentionFusion": (fusion.CrossAttentionFusion(d), (orig, rag)),
+        "PositionFeatModule(none)": (fusion.PositionFeatModule(norm="none"),
+                                     (pos,)),
+        "EmbeddingFusionModule(pos_norm=none)": (
+            fusion.EmbeddingFusionModule(d, pos_norm="none"),
+            (orig, pos, af)),
+    }
+    errs = {}
+    for i, (name, (mod, args)) in enumerate(cases.items()):
+        init_weights(mod, seed=40 + i)
+        with torch.no_grad():
+            want = mod(*args)
+            got = copy.deepcopy(mod).cuda()(*(a.cuda() for a in args)).cpu()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs[name] = err
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and torch.allclose(got, want, rtol=FUSION_TOL, atol=FUSION_TOL),
+              f"{name} on the card differs from the CPU: max |diff| {err:.2e}"
+              f" (output scale {scale:.3g})")
+    print("alternative fusions and pos_norm='none' at 384d, card against "
+          "CPU, float32: max |diff| "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + f" (tol {FUSION_TOL} relative and absolute)")
+
+
+def phase_remat(profile: bool = False) -> dict[str, int]:
+    """The model and trainer surface of remat: (1) each ``remat`` mode at
+    ``tpu_default`` width, batch 24, residual dropout on, bit-identical to
+    no remat under deterministic algorithms, with the attention forward's
+    recompute in the launch counts, peaks and step times; (2) ``tpu_scan``
+    through ``Trainer`` at a batch whose no-remat peak (extrapolated from
+    two measured batches) exceeds the card: two micro-steps, one update,
+    an async checkpoint overlapping the second, ``finalize`` and an exact
+    restore; (3) V17 token training at batch 16 with ``True`` and
+    ``"save_most"`` against no remat; (4) the alternative fusions."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.models.transformer import REMAT_MODES
+    from rag_snvbert_tpu_torch.train import step
+    from rag_snvbert_tpu_torch.train.retrieval import (build_token_window_ctx,
+                                                       encode_window_refs)
+    from rag_snvbert_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    counts: dict[str, int] = {}
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    base = PRESETS["tpu_default"]
+    m = base.model
+    bundle, ds = _train_bundle(48)
+    vocab = bundle.vocab.size
+    meta = ds.windows[0]
+
+    def put(b: int):
+        return {k: torch.from_numpy(v).cuda() for k, v in ds.make_batch(
+            meta, np.arange(b) % ds.n_samples, 0, 0, packed=True).items()}
+
+    def v18_ctx(model):
+        model.eval()
+        toks, af, valid = (torch.from_numpy(x).cuda() for x in
+                           ds.window_ref_tokens(meta, pad_haps_to=2048))
+        wmask = torch.from_numpy(ds.window_mask(meta, 0, 0)).cuda()
+        with torch.no_grad():
+            return encode_window_refs(model.embed, toks.long(), af, wmask,
+                                      valid=valid)
+
+    # (1) every mode at batch 24 (tpu_scan is remat=True), and no remat at
+    # batch 12 for the per-sample slope of the peak
+    batch = put(base.batch_size)
+    runs = {}
+    for mode in REMAT_MODES:
+        cfg = (PRESETS["tpu_scan"] if mode is True else
+               dataclasses.replace(base, model=dataclasses.replace(
+                   m, remat=mode)))
+        runs[mode] = _remat_run(cfg, vocab, batch, v18_ctx,
+                                profile=profile and f"remat={mode!r}")
+        _add(counts, runs[mode]["launches"])
+    half = _remat_run(base, vocab, put(base.batch_size // 2), v18_ctx,
+                      timed=1)
+    _add(counts, half["launches"])
+    ref = runs[False]
+    for mode, r in runs.items():
+        same = _same_run(r, ref)
+        want_fwd = m.n_layers * (1 if mode in (False, "save_most") else 2)
+        print(f"remat={mode!r} (batch {base.batch_size}, dropout "
+              f"{m.dropout}): loss {r['loss'].item():.6f}; bit-identical to "
+              f"remat=False: {same}; launches over its 7 micro-steps "
+              f"{ {k: v for k, v in r['launches'].items() if v} }; micro-"
+              f"step median {r['ms']:.1f} ms; peak device memory "
+              f"{r['peak_gb']:.2f} GB ({r['act_gb']:.2f} GB above the "
+              "resident model, optimizer and context)")
+        check(all(same.values()), f"remat={mode!r} changed the loss, a "
+              "gradient, the generator or the update")
+        # the deterministic step, the warm-up and the 5 timed ones
+        check(r["launches"]["attention"] == 7 * want_fwd
+              and r["launches"]["attention_bwd"] == 7 * m.n_layers
+              and r["launches"]["l2_topk"] == 7,
+              f"remat={mode!r}: attention forward launches "
+              f"{r['launches']['attention']}, expected {7 * want_fwd}")
+    for mode in (True, "save_ffn", "attention"):
+        check(runs[mode]["peak_gb"] < ref["peak_gb"],
+              f"remat={mode!r} did not lower the peak")
+    slope = (ref["peak_gb"] - half["peak_gb"]) / (base.batch_size
+                                                  - base.batch_size // 2)
+    card_gb = card_bytes / 1e9
+    fits = [b for b in REMAT_BATCHES
+            if ref["peak_gb"] + slope * (b - base.batch_size) > card_gb]
+    check(bool(fits), f"no batch of {REMAT_BATCHES} exceeds the card "
+          f"({card_gb:.1f} GB) without remat at {slope:.3f} GB a sample")
+    big = fits[0]
+    noremat_gb = ref["peak_gb"] + slope * (big - base.batch_size)
+    print(f"no-remat peak {half['peak_gb']:.2f} GB at batch "
+          f"{base.batch_size // 2}, {ref['peak_gb']:.2f} GB at "
+          f"{base.batch_size}: {slope:.3f} GB a sample; at batch {big} it "
+          f"would be {noremat_gb:.1f} GB against the card's {card_gb:.1f} GB")
+    del runs, half, ref, batch
+    torch.cuda.empty_cache()
+
+    # (2) tpu_scan through Trainer at that batch: micro-step, async save,
+    # micro-step (the update) while the writer writes, finalize, restore
+    cfg = PRESETS["tpu_scan"]
+    shutil.rmtree(REMAT_DIR, ignore_errors=True)
+    tcfg = TrainerConfig(epochs=1, batch_size=big, init_lr=cfg.max_lr,
+                         max_lr=cfg.max_lr, warmup_steps=1,
+                         grad_accum_steps=2, ref_pad_haps=2048,
+                         output_dir=REMAT_DIR, seed=0)
+    trainer = Trainer(build_model(cfg, vocab, seed=0), ds, tcfg)
+    opt = trainer.optimizer
+    batch = put(big)
+    ctx = trainer._window_ctx(ds, meta, 0, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    times = []
+
+    def micro(i):
+        gen = step.step_generator(0, i, trainer.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step.train_step(trainer.model, opt, batch, ctx, trainer.step_cfg,
+                        gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        trainer.step += 1
+
+    micro(0)
+    snap_params = {k: v.clone() for k, v in
+                   trainer.model.state_dict().items()}
+    snap_opt = copy.deepcopy(opt.state_dict())
+    t = time.perf_counter()
+    trainer.save_checkpoint(0, is_best=False)
+    call_s = time.perf_counter() - t
+    writing = trainer._saver is not None and trainer._saver.is_alive()
+    micro(1)
+    overlapped = trainer._saver is not None and trainer._saver.is_alive()
+    t = time.perf_counter()
+    trainer.finalize()
+    join_s = time.perf_counter() - t
+    counts_big = ops.launch_counts()
+    # the same save written in place, for the per-epoch arithmetic
+    trainer.cfg.async_checkpoints = False
+    t = time.perf_counter()
+    trainer.save_checkpoint(1, is_best=False)
+    sync_s = time.perf_counter() - t
+    _add(counts, counts_big)
+    peak_big = torch.cuda.max_memory_allocated() / 1e9
+    moved = sum(not torch.equal(snap_params[n], p)
+                for n, p in trainer.model.state_dict().items())
+    size_mb = os.path.getsize(os.path.join(REMAT_DIR, "ckpt_ep0",
+                                           "state.pt")) / 1e6
+    print(f"tpu_scan through Trainer at batch {big} (accumulation 2, "
+          f"L {m.seq_len}): micro-steps {[round(x * 1e3, 1) for x in times]}"
+          f" ms, {big / statistics.mean(times):.1f} training samples/s; "
+          f"peak device memory {peak_big:.2f} GB (no remat: "
+          f"{noremat_gb:.1f} GB extrapolated, the card {card_gb:.1f} GB); "
+          f"launches {counts_big}; async checkpoint of {size_mb:.1f} MB: "
+          f"{call_s:.2f} s on the calling thread (gather + host copy), "
+          f"writer still writing when micro-step 2 started {writing} and "
+          f"when it ended {overlapped}, finalize waited {join_s:.2f} s; "
+          f"the same save written in place {sync_s:.2f} s")
+    check(peak_big < card_gb and noremat_gb > card_gb,
+          "the remat batch does not show a batch that fits only with remat")
+    check(counts_big["attention"] == 2 * 2 * m.n_layers
+          and counts_big["attention_bwd"] == 2 * m.n_layers
+          and counts_big["l2_topk"] == 2,
+          f"tpu_scan at batch {big}: launches {counts_big}")
+    check(opt.count == 1 and moved > 0,
+          "the second micro-step did not update the parameters")
+    check(all(np.isfinite(x) for x in times), "non-finite step time")
+    fresh = Trainer(build_model(cfg, vocab, seed=1), ds, tcfg)
+    fresh.restore_checkpoint(os.path.join(REMAT_DIR, "ckpt_ep0"))
+    same = all(torch.equal(fresh.model.state_dict()[n], v)
+               for n, v in snap_params.items())
+    b_opt = fresh.optimizer.state_dict()
+    same_opt = (snap_opt["count"], snap_opt["mini_step"]) == (
+        b_opt["count"], b_opt["mini_step"]) and all(
+        torch.equal(snap_opt[key][n], b_opt[key][n])
+        for key in ("mu", "nu", "acc") for n in snap_opt[key])
+    print(f"restore of the async checkpoint: parameters equal the state at "
+          f"the save {same}, optimizer state {same_opt} (mini_step "
+          f"{b_opt['mini_step']}, count {b_opt['count']}), step "
+          f"{fresh.step}")
+    check(same and same_opt and fresh.step == 1,
+          "the async checkpoint does not hold the state at the save")
+    del trainer, fresh, opt, batch, ctx, snap_params, snap_opt
+    torch.cuda.empty_cache()
+
+    # (3) V17 token training at batch 16 (attention dropout 0.1: the einsum
+    # path, where "save_most" recomputes the [B, H, L, L] core)
+    tcfg17 = PRESETS["v17_token_rag"]
+    tbundle, tds = _train_bundle(32)
+    tmeta = tds.windows[0]
+    tbatch = {k: torch.from_numpy(v).cuda() for k, v in tds.make_batch(
+        tmeta, np.arange(tcfg17.batch_size), 0, 0, packed=True).items()}
+
+    def token_ctx(_model):
+        toks, _, valid = (torch.from_numpy(x).cuda() for x in
+                          tds.window_ref_tokens(tmeta, pad_haps_to=2048))
+        wmask = torch.from_numpy(tds.window_mask(tmeta, 0, 0)).cuda()
+        return build_token_window_ctx(toks.long(), wmask, valid=valid)
+
+    truns = {}
+    for mode in (False, True, "save_most"):
+        cfg = dataclasses.replace(tcfg17, model=dataclasses.replace(
+            tcfg17.model, remat=mode))
+        truns[mode] = _remat_run(
+            cfg, tbundle.vocab.size, tbatch, token_ctx, timed=2,
+            profile=profile and f"v17_token_rag remat={mode!r}")
+        _add(counts, truns[mode]["launches"])
+    for mode, r in truns.items():
+        same = _same_run(r, truns[False])
+        print(f"v17_token_rag remat={mode!r} (batch {tcfg17.batch_size}, "
+              f"attention dropout 0.1): loss {r['loss'].item():.6f}; "
+              f"bit-identical to remat=False: {same}; micro-step median "
+              f"{r['ms']:.1f} ms; peak device memory {r['peak_gb']:.2f} GB "
+              f"({r['act_gb']:.2f} GB above the resident state); launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }")
+        check(all(same.values()) and r["launches"]["l2_topk_rf"] == 4,
+              f"v17 remat={mode!r} changed a number or skipped l2_topk_rf")
+        check(mode is False or r["peak_gb"] < truns[False]["peak_gb"],
+              f"v17 remat={mode!r} did not lower the peak")
+    del truns, tbatch
+    torch.cuda.empty_cache()
+
+    # (4) the alternative fusions
+    _fusions_on_the_card()
     return counts
 
 
@@ -3086,6 +3477,7 @@ def main() -> None:
                         ("training", phase_training),
                         ("token_serving", phase_token_serving),
                         ("token_training", phase_token_training),
+                        ("remat", phase_remat),
                         ("index", lambda _profile: phase_index(gen)),
                         ("int8", phase_int8),
                         ("cli", phase_cli),

@@ -3,8 +3,11 @@ and the torch model builder.
 
 The dataclasses and ``PRESETS`` are verbatim copies, so a preset means the
 same model in both packages.  Fields that only shape the TPU program
-(``remat``, ``scan_layers``, the block sizes in a ``flash_attention``
-string) are accepted and have no effect here.
+(``scan_layers``: the port's layers are unrolled, and a scanned flax tree
+loads all the same; the block sizes in a ``flash_attention`` string) are
+accepted and have no effect here.  ``remat`` is activation checkpointing
+with the JAX meanings (``models/transformer.py``), so ``tpu_scan`` is
+``tpu_default`` with block remat: the same numbers for less memory.
 """
 
 from __future__ import annotations
@@ -174,7 +177,8 @@ def build_model(cfg: RunConfig, vocab_size: int, device=None,
                                 else torch.float32),
                    dropout_broadcast=m.dropout_broadcast,
                    fused_qkv=m.fused_qkv,
-                   pos_norm=m.pos_norm, int8_matmuls=m.int8_matmuls)
+                   pos_norm=m.pos_norm, int8_matmuls=m.int8_matmuls,
+                   remat=m.remat)
         model = BERTFoundationModel(
             bert, compat_double_softmax=m.compat_double_softmax)
     model = init_weights(model.to_empty(device="cpu"), seed)

@@ -7,6 +7,12 @@ rag_snvbert_tpu/interop/torch_ckpt.py:52-72):
 
   Dense ``kernel [in, out]``      -> Linear ``weight [out, in]``
   Conv ``kernel [k, in, out]``    -> Conv1d ``weight [out, in, k]``
+  DenseGeneral ``kernel [*in, *out]`` -> ``weight [*out, *in]``, the
+      projections ``query``/``key``/``value`` (``[D, H, hd]``, one input
+      axis) and ``out`` (``[H, hd, D]``, two) of a flax
+      ``MultiHeadDotProductAttention`` (``CrossAttentionFusion``); their
+      biases keep their shapes.  Keyed by the module, not the rank: a
+      3-D kernel elsewhere is a Conv's.
   LayerNorm/GroupNorm ``scale``   -> ``weight``
   FrozenBatchNorm ``scale``       -> ``weight`` (``mean``/``var`` buffers)
   Embed ``embedding``             -> Embedding ``weight``
@@ -72,12 +78,40 @@ def _leaves(tree: Mapping) -> dict[tuple, np.ndarray]:
     return _unstack_scanned(_flatten(tree))
 
 
-def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
-    if leaf == "kernel" and arr.ndim == 2:
+_DENSE_GENERAL_IN_AXES = {"query": 1, "key": 1, "value": 1, "out": 2}
+
+
+def _dense_general_in_axes(modules) -> int | None:
+    """The number of input axes of a ``DenseGeneral`` kernel at the module
+    path ``modules`` (names up to the leaf), or None for another module."""
+    if len(modules) >= 2 and modules[-2].startswith(
+            "MultiHeadDotProductAttention"):
+        return _DENSE_GENERAL_IN_AXES.get(modules[-1])
+    return None
+
+
+def _to_torch_layout(path: tuple, arr: np.ndarray) -> np.ndarray:
+    """A flax leaf at ``path`` in the port's layout."""
+    if path[-1] != "kernel":
+        return arr
+    n_in = _dense_general_in_axes(path[:-1])
+    if n_in is not None:
+        return arr.transpose(*range(n_in, arr.ndim), *range(n_in))
+    if arr.ndim == 2:
         return arr.T
-    if leaf == "kernel" and arr.ndim == 3:
+    if arr.ndim == 3:
         return arr.transpose(2, 1, 0)
     return arr
+
+
+def _to_flax_layout(modules, arr: np.ndarray) -> np.ndarray:
+    """A port ``weight`` of more than one axis at module path ``modules``
+    as a flax ``kernel``: the inverse of ``_to_torch_layout``."""
+    n_in = _dense_general_in_axes(modules)
+    if n_in is not None:
+        n_out = arr.ndim - n_in
+        return arr.transpose(*range(n_out, arr.ndim), *range(n_out))
+    return arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
 
 
 def _torch_key(path: tuple) -> str:
@@ -93,9 +127,10 @@ def leaf_shapes(tree: Mapping) -> dict[str, tuple]:
 def flax_params_of(model_or_state) -> dict:
     """The flax-layout numpy tree (float32) of a port model or of its
     ``state_dict``: the inverse of ``load_flax_params``.  A ``weight`` is
-    an ``Embed``'s ``embedding``, a norm's ``scale`` (1-D) or a Dense/Conv
-    ``kernel`` in the flax layout; buffers (``FrozenBatchNorm``'s
-    ``mean``/``var``) are leaves, as they are parameters in flax."""
+    an ``Embed``'s ``embedding``, a norm's ``scale`` (1-D) or a
+    Dense/Conv/DenseGeneral ``kernel`` in the flax layout; buffers
+    (``FrozenBatchNorm``'s ``mean``/``var``) are leaves, as they are
+    parameters in flax."""
     state = (model_or_state.state_dict()
              if isinstance(model_or_state, nn.Module) else model_or_state)
     tree: dict = {}
@@ -110,7 +145,7 @@ def flax_params_of(model_or_state) -> dict:
                 leaf = "scale"
             else:
                 leaf = "kernel"
-                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+                arr = _to_flax_layout(mods, arr)
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
@@ -133,7 +168,7 @@ def load_flax_params(model_or_state, params: Mapping):
         if key not in state:
             extra.append("/".join(path))
             continue
-        val = np.array(_to_torch_layout(path[-1], arr), order="C")  # 0-d stays 0-d
+        val = np.array(_to_torch_layout(path, arr), order="C")  # 0-d stays 0-d
         dst = state[key]
         if tuple(val.shape) != tuple(dst.shape):
             raise ValueError(f"{'/'.join(path)}: shape {val.shape} does not "
@@ -196,7 +231,7 @@ def _tree_into(optimizer, tree: Mapping, what: str,
         if name not in shapes:
             extra.append("/".join(path))
             continue
-        val = np.array(_to_torch_layout(path[-1], arr), order="C")
+        val = np.array(_to_torch_layout(path, arr), order="C")
         if tuple(val.shape) != shapes[name]:
             raise ValueError(f"{what} {'/'.join(path)}: shape {val.shape} "
                              f"does not fit {name}")

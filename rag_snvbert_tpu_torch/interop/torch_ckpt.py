@@ -390,7 +390,7 @@ def save_converted(params: dict, meta: dict[str, Any], out_dir: str) -> None:
 
     os.makedirs(out_dir, exist_ok=True)
     state = {_torch_key(p): torch.from_numpy(
-        np.array(_to_torch_layout(p[-1], a), order="C"))
+        np.array(_to_torch_layout(p, a), order="C"))
         for p, a in _leaves(params).items()}
     tmp = os.path.join(out_dir, "state.pt.tmp")
     torch.save({"params": state}, tmp)

@@ -25,7 +25,9 @@ from .transformer import Encoder
 
 class BERT(nn.Module):
     """Dual-haplotype encoder: shared embedding + fusion + N blocks, both
-    haplotypes stacked into one ``[2B, L]`` pass."""
+    haplotypes stacked into one ``[2B, L]`` pass.  ``remat``: the
+    encoder's activation checkpointing (``transformer.py``), for every
+    pass through it."""
 
     def __init__(self, vocab_size: int, dims: int = 512, n_layers: int = 12,
                  attn_heads: int = 16, dropout: float = 0.1,
@@ -34,7 +36,8 @@ class BERT(nn.Module):
                  flash_attention: bool = False,
                  score_dtype: torch.dtype = torch.float32,
                  dropout_broadcast: bool = False, fused_qkv: bool = False,
-                 pos_norm: str = "group", int8_matmuls: bool | str = False):
+                 pos_norm: str = "group", int8_matmuls: bool | str = False,
+                 remat: bool | str = False):
         super().__init__()
         self.dims = dims
         self.embedding = BERTEmbedding(vocab_size, dims, dropout, dtype=dtype)
@@ -43,7 +46,7 @@ class BERT(nn.Module):
         self.encoder = Encoder(n_layers, dims, attn_heads, dropout, pre_ln,
                                dtype, attn_dropout, flash_attention,
                                score_dtype, dropout_broadcast, fused_qkv,
-                               int8_matmuls)
+                               int8_matmuls, remat)
 
     def embed(self, tokens: torch.Tensor, af: torch.Tensor) -> torch.Tensor:
         """Embedding-layer forward: the retrieval encoder."""
@@ -69,7 +72,9 @@ class BERTWithRAG(BERT):
     (JAX bert.py:87-117).  The queries and every retrieved segment ride one
     stacked ``[2B (1 + K), L]`` pass: every weight is shared, and each row
     is computed on its own, so this equals the JAX package's three
-    passes."""
+    passes.  The JAX package folds K into the batch and "relies on remat
+    for the memory trade" (bert.py:96-101): ``remat`` checkpoints this
+    pass too."""
 
     def __init__(self, vocab_size: int, dims: int = 512, **kw):
         super().__init__(vocab_size, dims, **kw)

@@ -1,10 +1,12 @@
 """Fusion modules: embedding-level feature fusion and the V18 RAG fusion.
 
-Port of rag_snvbert_tpu/models/fusion.py:33-179.  The four alternative
-fusions of that file (RareVariantAwareFusion, FixedConcatFusion,
-ConcatFusion, CrossAttentionFusion) are not ported yet.  Activations keep
+Port of rag_snvbert_tpu/models/fusion.py, with the four alternative
+fusions (RareVariantAwareFusion, FixedConcatFusion, ConcatFusion,
+CrossAttentionFusion, :182-241), which no preset builds.  Activations keep
 the JAX layouts (``[B, L, D]``); the position convolutions run in torch's
-``[B, C, L]`` internally.
+``[B, C, L]`` internally.  The alternative fusions take no dtype, as in the
+JAX package: flax computes them in the promotion of input and float32
+parameters (float32), with eps 1e-6 LayerNorms and the tanh GELU.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, Dropout, LayerNorm, gelu
+from .layers import Dense, DenseGeneral, Dropout, LayerNorm, gelu
 
 
 class FrozenBatchNorm(nn.Module):
@@ -42,14 +44,16 @@ class FrozenBatchNorm(nn.Module):
 
 class PositionFeatModule(nn.Module):
     """Three Conv1d(k=9, "SAME") + LeakyReLU(0.05) over the normalised
-    position channel, with GroupNorm(1) (eps 1e-6, flax's) or frozen
-    BatchNorm between them.  Always float32."""
+    position channel, with GroupNorm(1) (eps 1e-6, flax's), frozen
+    BatchNorm or (``"none"``) nothing between them.  Always float32."""
 
     def __init__(self, hidden_channels: int = 4, kernel_size: int = 9,
                  norm: str = "group"):
         super().__init__()
-        if norm not in ("group", "frozen_batch"):
-            raise NotImplementedError(f"pos_norm={norm!r} is not ported yet")
+        if norm not in ("group", "frozen_batch", "none"):
+            # "batch": the JAX model itself cannot apply it (its
+            # batch_stats collection is never created)
+            raise ValueError(f"unknown pos_norm {norm!r}")
         c, k = hidden_channels, kernel_size
         self.Conv_0 = nn.Conv1d(1, c, k, padding=k // 2)
         self.Conv_1 = nn.Conv1d(c, c, k, padding=k // 2)
@@ -58,11 +62,13 @@ class PositionFeatModule(nn.Module):
         if norm == "group":
             self.GroupNorm_0 = nn.GroupNorm(1, c, eps=1e-6)
             self.GroupNorm_1 = nn.GroupNorm(1, c, eps=1e-6)
-        else:
+        elif norm == "frozen_batch":
             self.FrozenBatchNorm_0 = FrozenBatchNorm(c)
             self.FrozenBatchNorm_1 = FrozenBatchNorm(c)
 
     def _norm(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        if self.norm == "none":
+            return x
         name = "GroupNorm" if self.norm == "group" else "FrozenBatchNorm"
         return getattr(self, f"{name}_{i}")(x)
 
@@ -151,3 +157,101 @@ class EnhancedRareVariantFusion(nn.Module):
         # torch would keep bf16 for a 0-d operand, hence the explicit casts.
         res = (fused * maf_weight.to(fused.dtype)).float()
         return orig_feat.float() + self.res_scale * res
+
+
+class RareVariantAwareFusion(nn.Module):
+    """Alternative fusion (JAX fusion.py:182-196): an AF-gated weight
+    broadcast over the K references, 0.7 mean + 0.3 max pooling,
+    ``gelu(LN(Dense([orig, pooled])))`` scaled by ``sqrt(af (1 - af))``."""
+
+    def __init__(self, dims: int):
+        super().__init__()
+        self.Dense_0 = Dense(1, 16)
+        self.Dense_1 = Dense(16, dims)
+        self.Dense_2 = Dense(2 * dims, dims)
+        self.LayerNorm_0 = LayerNorm(dims)
+
+    def forward(self, orig_feat: torch.Tensor, rag_feat: torch.Tensor,
+                af: torch.Tensor) -> torch.Tensor:
+        # orig_feat [B, L, D]; rag_feat [B, K, L, D]; af [B, L]
+        w = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(af[..., None]))))
+        weighted = rag_feat * w[:, None].to(rag_feat.dtype)
+        pooled = 0.7 * weighted.mean(dim=1) + 0.3 * weighted.amax(dim=1)
+        fused = gelu(self.LayerNorm_0(self.Dense_2(
+            torch.cat([orig_feat, pooled], dim=-1))))
+        maf_w = torch.sqrt(af * (1 - af))[..., None]
+        return orig_feat + fused * maf_w.to(fused.dtype)
+
+
+class FixedConcatFusion(nn.Module):
+    """Mean pooling, concat, 0.1-scaled residual (JAX fusion.py:199-209)."""
+
+    def __init__(self, dims: int):
+        super().__init__()
+        self.Dense_0 = Dense(2 * dims, dims)
+        self.LayerNorm_0 = LayerNorm(dims)
+
+    def forward(self, orig_feat: torch.Tensor,
+                rag_feat: torch.Tensor) -> torch.Tensor:
+        fused = torch.cat([orig_feat, rag_feat.mean(dim=1)], dim=-1)
+        return orig_feat + 0.1 * gelu(self.LayerNorm_0(self.Dense_0(fused)))
+
+
+class ConcatFusion(nn.Module):
+    """0.5 mean + 0.5 max pooling, a Dense fuse (the reference's 1x1
+    conv), residual (JAX fusion.py:212-222)."""
+
+    def __init__(self, dims: int):
+        super().__init__()
+        self.Dense_0 = Dense(2 * dims, dims)
+
+    def forward(self, orig_feat: torch.Tensor,
+                rag_feat: torch.Tensor) -> torch.Tensor:
+        pooled = 0.5 * rag_feat.mean(dim=1) + 0.5 * rag_feat.amax(dim=1)
+        return orig_feat + self.Dense_0(torch.cat([orig_feat, pooled],
+                                                  dim=-1))
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` as ``CrossAttentionFusion``
+    builds it (``qkv_features = out_features = D``, dropout rate 0, no
+    mask): ``DenseGeneral`` projections named ``query``/``key``/``value``
+    (``[D] -> [H, hd]``) and ``out`` (``[H, hd] -> [D]``); the query is
+    divided by ``sqrt(hd)`` before the product, and the softmax is taken in
+    the computation dtype (float32 from float32 parameters)."""
+
+    def __init__(self, dims: int, heads: int):
+        super().__init__()
+        if dims % heads:
+            raise ValueError(f"dims {dims} not divisible by heads {heads}")
+        hd = dims // heads
+        self.query = DenseGeneral((dims,), (heads, hd))
+        self.key = DenseGeneral((dims,), (heads, hd))
+        self.value = DenseGeneral((dims,), (heads, hd))
+        self.out = DenseGeneral((heads, hd), (dims,))
+
+    def forward(self, inputs_q: torch.Tensor,
+                inputs_kv: torch.Tensor) -> torch.Tensor:
+        q = self.query(inputs_q)                 # [N, Lq, H, hd]
+        k, v = self.key(inputs_kv), self.value(inputs_kv)
+        q = q / torch.sqrt(torch.tensor(q.shape[-1], dtype=q.dtype))
+        w = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q, k), dim=-1)
+        return self.out(torch.einsum("nhqk,nkhd->nqhd", w, v))
+
+
+class CrossAttentionFusion(nn.Module):
+    """Cross attention of the query sequence to each retrieved reference,
+    averaged over K (JAX fusion.py:225-241; K folded into the batch)."""
+
+    def __init__(self, dims: int, heads: int = 8):
+        super().__init__()
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+            dims, heads)
+
+    def forward(self, orig_feat: torch.Tensor,
+                rag_feat: torch.Tensor) -> torch.Tensor:
+        b, k, l, d = rag_feat.shape
+        q = orig_feat[:, None].expand(b, k, l, d).reshape(b * k, l, d)
+        out = self.MultiHeadDotProductAttention_0(
+            q, rag_feat.reshape(b * k, l, d))
+        return orig_feat + out.reshape(b, k, l, d).mean(dim=1)

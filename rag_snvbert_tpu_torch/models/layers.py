@@ -14,6 +14,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -36,6 +37,34 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _out_dtype(x, self.weight, self.compute_dtype)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class DenseGeneral(nn.Module):
+    """``flax.linen.DenseGeneral`` over the last ``len(in_shape)`` axes to
+    ``out_shape`` (as flax ``MultiHeadDotProductAttention`` uses it:
+    ``[D] -> [H, hd]`` for query/key/value, ``[H, hd] -> [D]`` for its
+    output), computed in the promotion of input and parameter types.
+    ``weight`` is stored torch-style, the output axes first:
+    ``[*out_shape, *in_shape]`` (flax's kernel is ``[*in, *out]``);
+    ``bias`` is ``out_shape``."""
+
+    def __init__(self, in_shape: tuple[int, ...], out_shape: tuple[int, ...]):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.weight = nn.Parameter(torch.empty(*out_shape, *in_shape))
+        self.bias = nn.Parameter(torch.zeros(out_shape))
+
+    @property
+    def fan_in(self) -> int:
+        return math.prod(self.in_shape)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _out_dtype(x, self.weight, None)
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        y = F.linear(x.reshape(*lead, self.fan_in).to(dt),
+                     self.weight.reshape(-1, self.fan_in).to(dt),
+                     self.bias.reshape(-1).to(dt))
+        return y.reshape(*lead, *self.out_shape)
 
 
 class LayerNorm(nn.Module):
@@ -194,6 +223,42 @@ class Dropout(nn.Module):
                        self.rows, self.heads)
 
 
+def checkpoint(fn, module: nn.Module, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward pass keeps only the inputs and runs ``fn`` again to get the
+    rest.  The recompute draws the forward's dropout masks: every
+    generator that ``module``'s ``Dropout``s hold is set to its state at
+    this call for the recompute, then put back where it was (torch's
+    ``preserve_rng_state`` covers only the global RNGs, which the model
+    never draws from).  So remat changes no bit of the loss or the
+    gradients, as the JAX ``nn.remat`` (which recomputes from the same
+    key) changes none.  With grad disabled it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    gens = list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, Dropout)
+                 and m.generator is not None}.values())
+    entry = [g.get_state() for g in gens]
+    forward_done = False
+
+    def run(*a):
+        nonlocal forward_done
+        if not forward_done:
+            forward_done = True
+            return fn(*a)
+        left = [g.get_state() for g in gens]
+        for g, s in zip(gens, entry):
+            g.set_state(s)
+        try:
+            return fn(*a)
+        finally:    # also when the recompute stops early
+            for g, s in zip(gens, left):
+                g.set_state(s)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def set_dropout_generator(model: nn.Module, gen: torch.Generator | None,
                           rows: BatchRows | None = None) -> None:
     """Give every ``Dropout`` of ``model`` the generator to draw from (one
@@ -219,8 +284,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         p.copy_(torch.randn(p.shape, generator=g, dtype=torch.float32) * std)
 
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv1d)):
-            fan_in = mod.weight[0].numel()
+        if isinstance(mod, (nn.Linear, nn.Conv1d, DenseGeneral)):
+            fan_in = (mod.fan_in if isinstance(mod, DenseGeneral)
+                      else mod.weight[0].numel())
             normal_(mod.weight, 1.0 / math.sqrt(fan_in))
             mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):

@@ -6,14 +6,36 @@ kernel (``ops/attention.py``) where the JAX package takes its Pallas kernel
 (``flash_attention`` set, attention dropout 0, no mask,
 transformer.py:207-208); otherwise the plain torch math below, the twin of
 the JAX einsum path (:220-233).  The layer stack is an unrolled loop: no
-scan, no remat, and no pad-once residency (:379-399 pads to TPU block
-multiples; the CUDA kernel masks the ragged tail itself).  ``quant`` (the
-model's ``int8_matmuls``) builds every projection as ``ops.quant``'s
-``Int8Dense`` (:191-192, :249-250).  ``tp_group`` (set by
-``parallel/tp.py``'s ``shard_model``) makes attention and the FFN
-Megatron-parallel: each rank holds whole heads of query/key/value (or
-``qkv``) and a slice of ``w_1``, and the row-parallel ``output`` and
-``w_2`` products are summed over the group.
+scan and no pad-once residency (:379-399 pads to TPU block multiples; the
+CUDA kernel masks the ragged tail itself).  ``quant`` (the model's
+``int8_matmuls``) builds every projection as ``ops.quant``'s ``Int8Dense``
+(:191-192, :249-250).  ``tp_group`` (set by ``parallel/tp.py``'s
+``shard_model``) makes attention and the FFN Megatron-parallel: each rank
+holds whole heads of query/key/value (or ``qkv``) and a slice of ``w_1``,
+and the row-parallel ``output`` and ``w_2`` products are summed over the
+group.
+
+``remat`` is activation checkpointing with the JAX meanings (``Encoder``,
+:336-349, :401-413), through ``layers.checkpoint``, which recomputes with
+the forward's dropout masks, so no mode changes a number.  What each mode
+stores for the backward pass:
+
+  ``True``         each block's input; backward runs the block again;
+  ``"save_ffn"``   each block's input, the residual stream after attention
+                   and ``leaky_relu(w_1(x))`` (JAX's ``ffn_hidden``);
+                   backward reruns the attention sublayer with ``w_1``, and
+                   the FFN's tail;
+  ``"attention"``  each attention's input (the FFN stores all it does
+                   without remat); backward runs the attention again;
+  ``"save_most"``  all but the einsum path's ``[B, H, L, L]`` scores,
+                   probabilities and dropout mask, which backward
+                   recomputes from q, k and v; the kernel path never stores
+                   them, so there it changes nothing (as on the JAX splash
+                   path, which names no tensor for the policy).
+
+With grad disabled (serving, validation) every mode is a plain call.
+Under tensor parallelism a recompute repeats the forward's all-reduces
+inside the backward pass, on every rank alike.
 """
 
 from __future__ import annotations
@@ -23,18 +45,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
-from .layers import Dropout, LayerNorm, row_parallel
+from .layers import Dropout, LayerNorm, checkpoint, row_parallel
+
+REMAT_MODES = (False, True, "save_ffn", "attention", "save_most")
 
 
 class MultiHeadAttention(nn.Module):
+    """``remat``: ``True`` (the block's ``"attention"`` mode) checkpoints
+    the whole forward; ``"save_most"`` only the einsum path's score ->
+    softmax -> dropout -> ``probs @ v`` core."""
+
     def __init__(self, heads: int, dims: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32,
                  attn_dropout: float | None = None, flash: bool = False,
                  score_dtype: torch.dtype = torch.float32,
-                 fused_qkv: bool = False, quant: bool | str = False):
+                 fused_qkv: bool = False, quant: bool | str = False,
+                 remat: bool | str = False):
         super().__init__()
         from ..ops.quant import dense_cls   # ops.quant imports models.layers
 
+        if remat not in (False, True, "save_most"):
+            raise ValueError(f"attention remat must be False, True or "
+                             f"'save_most', got {remat!r}")
         Dense = dense_cls(quant)
         if dims % heads:
             raise ValueError(f"dims {dims} not divisible by heads {heads}")
@@ -44,6 +76,7 @@ class MultiHeadAttention(nn.Module):
         self.flash = flash
         self.score_dtype = score_dtype
         self.fused_qkv = fused_qkv
+        self.remat = remat
         if fused_qkv:
             self.qkv = Dense(dims, 3 * dims, dtype)
         else:
@@ -56,6 +89,12 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
+        if self.remat is True:
+            return checkpoint(self._forward, self, x, mask)
+        return self._forward(x, mask)
+
+    def _forward(self, x: torch.Tensor,
+                 mask: torch.Tensor | None) -> torch.Tensor:
         b, l, _ = x.shape
         hd = self.dims // self.heads
         heads = self.local_heads
@@ -75,22 +114,29 @@ class MultiHeadAttention(nn.Module):
         if self.flash and mask is None and self.attn_rate == 0.0:
             out = attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             1.0 / float(hd) ** 0.5)
+        elif self.remat == "save_most":
+            out = checkpoint(self._core, self.attn_drop, q, k, v, mask)
         else:
-            sd = self.score_dtype
-            score = torch.matmul(q.to(sd), k.to(sd).transpose(-1, -2))
-            score = score / torch.sqrt(torch.tensor(hd, dtype=sd))
-            if mask is not None:
-                score = score.masked_fill(mask == 0, -1e9)
-            probs = torch.softmax(score, dim=-1).to(self.dtype)
-            probs = self.attn_drop(probs)
-            out = torch.matmul(probs, v)
+            out = self._core(q, k, v, mask)
         out = out.transpose(1, 2).reshape(b, l, heads * hd)
         return row_parallel(self.output, out, self.tp_group)
+
+    def _core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor | None) -> torch.Tensor:
+        """The einsum path: ``dropout(softmax(q k^T / sqrt(hd))) v``."""
+        sd = self.score_dtype
+        score = torch.matmul(q.to(sd), k.to(sd).transpose(-1, -2))
+        score = score / torch.sqrt(torch.tensor(q.shape[-1], dtype=sd))
+        if mask is not None:
+            score = score.masked_fill(mask == 0, -1e9)
+        probs = torch.softmax(score, dim=-1).to(self.dtype)
+        return torch.matmul(self.attn_drop(probs), v)
 
 
 class FeedForward(nn.Module):
     """Dense -> LeakyReLU(0.1) -> LayerNorm -> Dense -> LeakyReLU(0.1) ->
-    dropout."""
+    dropout; ``hidden`` is the part up to JAX's ``ffn_hidden``, ``tail``
+    the rest."""
 
     def __init__(self, dims: int, hidden_dims: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32,
@@ -106,18 +152,27 @@ class FeedForward(nn.Module):
         self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tail(self.hidden(x))
+
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp_group is not None:
             from ..parallel.comm import copy_to_group
 
             x = copy_to_group(x, self.tp_group)
-        h = self.LayerNorm_0(F.leaky_relu(self.w_1(x), 0.1))
-        h = F.leaky_relu(row_parallel(self.w_2, h, self.tp_group), 0.1)
+        return F.leaky_relu(self.w_1(x), 0.1)
+
+    def tail(self, h: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(row_parallel(self.w_2, self.LayerNorm_0(h),
+                                      self.tp_group), 0.1)
         return self.drop(h)
 
 
 class TransformerBlock(nn.Module):
     """``pre_ln=False``: the reference's ``dropout(LN(x + f(x)))`` per
-    sublayer plus a trailing dropout; ``pre_ln=True``: standard pre-norm."""
+    sublayer plus a trailing dropout; ``pre_ln=True``: standard pre-norm.
+    ``remat``: one of ``REMAT_MODES`` (the module docstring says what each
+    stores); ``True`` and ``"save_ffn"`` checkpoint the block here, the
+    other two its attention."""
 
     def __init__(self, dims: int, attn_heads: int, feed_forward_hidden: int,
                  dropout: float = 0.1, pre_ln: bool = False,
@@ -125,13 +180,18 @@ class TransformerBlock(nn.Module):
                  attn_dropout: float | None = None, flash: bool = False,
                  score_dtype: torch.dtype = torch.float32,
                  dropout_broadcast: bool = False, fused_qkv: bool = False,
-                 quant: bool | str = False):
+                 quant: bool | str = False, remat: bool | str = False):
         super().__init__()
-        self.dtype, self.pre_ln = dtype, pre_ln
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                             f"{remat!r}")
+        self.dtype, self.pre_ln, self.remat = dtype, pre_ln, remat
         self.drop = Dropout(dropout, dropout_broadcast)
+        attn_remat = {"attention": True, "save_most": "save_most"}.get(
+            remat, False)
         self.attention = MultiHeadAttention(
             attn_heads, dims, dropout, dtype, attn_dropout, flash,
-            score_dtype, fused_qkv, quant)
+            score_dtype, fused_qkv, quant, attn_remat)
         self.feed_forward = FeedForward(dims, feed_forward_hidden, dropout,
                                         dtype, dropout_broadcast, quant)
         self.LayerNorm_0 = LayerNorm(dims, dtype)
@@ -139,17 +199,39 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
+        if self.remat is True:
+            return checkpoint(self._block, self, x, mask)
+        if self.remat == "save_ffn":
+            x, h = checkpoint(self._to_ffn_hidden, self, x, mask)
+            return checkpoint(self._from_ffn_hidden, self, x, h)
+        return self._block(x, mask)
+
+    def _block(self, x: torch.Tensor,
+               mask: torch.Tensor | None) -> torch.Tensor:
+        return self._from_ffn_hidden(*self._to_ffn_hidden(x, mask))
+
+    def _to_ffn_hidden(self, x: torch.Tensor, mask: torch.Tensor | None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The attention sublayer, then the FFN up to ``ffn_hidden``:
+        ``(residual stream, ffn_hidden)``."""
         x = x.to(self.dtype)
         if self.pre_ln:
             x = x + self.drop(self.attention(self.LayerNorm_0(x), mask))
-            return x + self.drop(self.feed_forward(self.LayerNorm_1(x)))
+            return x, self.feed_forward.hidden(self.LayerNorm_1(x))
         x = self.drop(self.LayerNorm_0(x + self.attention(x, mask)))
-        x = self.drop(self.LayerNorm_1(x + self.feed_forward(x)))
+        return x, self.feed_forward.hidden(x)
+
+    def _from_ffn_hidden(self, x: torch.Tensor,
+                         h: torch.Tensor) -> torch.Tensor:
+        if self.pre_ln:
+            return x + self.drop(self.feed_forward.tail(h))
+        x = self.drop(self.LayerNorm_1(x + self.feed_forward.tail(h)))
         return self.drop(x)
 
 
 class Encoder(nn.Module):
-    """``n_layers`` blocks named ``block_{i}`` (the flax tree's names)."""
+    """``n_layers`` blocks named ``block_{i}`` (the flax tree's names),
+    each with ``remat``."""
 
     def __init__(self, n_layers: int, dims: int, attn_heads: int,
                  dropout: float = 0.1, pre_ln: bool = False,
@@ -157,7 +239,7 @@ class Encoder(nn.Module):
                  attn_dropout: float | None = None, flash: bool = False,
                  score_dtype: torch.dtype = torch.float32,
                  dropout_broadcast: bool = False, fused_qkv: bool = False,
-                 quant: bool | str = False):
+                 quant: bool | str = False, remat: bool | str = False):
         super().__init__()
         self.dtype = dtype
         self.n_layers = n_layers
@@ -165,7 +247,7 @@ class Encoder(nn.Module):
             self.add_module(f"block_{i}", TransformerBlock(
                 dims, attn_heads, 4 * dims, dropout, pre_ln, dtype,
                 attn_dropout, flash, score_dtype, dropout_broadcast,
-                fused_qkv, quant))
+                fused_qkv, quant, remat))
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:

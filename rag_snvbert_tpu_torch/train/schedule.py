@@ -8,8 +8,11 @@ optax chain of ``make_optimizer`` (:32-40) step for step, in float32:
      ``g / |g| * c``, i.e. ``g * min(1, c / |g|)`` with no epsilon
      (``torch.nn.utils.clip_grad_norm_`` divides by ``|g| + 1e-6``);
   2. ``optax.adamw(schedule, b1=0.9, b2=0.999, eps=1e-8,
-     weight_decay=0)``: bias-corrected moments, no weight decay (torch's
-     ``AdamW`` would default to 0.01);
+     weight_decay=wd)``: bias-corrected moments, then the decoupled decay
+     ``wd * p`` added to the Adam direction before the learning rate
+     scales it, for every parameter (the JAX chain passes no mask); the
+     default ``wd = 0`` is the reference's Adam (torch's ``AdamW`` would
+     default to 0.01);
   3. the learning rate is the schedule at the number of updates already
      applied;
   4. ``accum_steps > 1`` is ``optax.MultiSteps``: the micro-gradients are
@@ -64,13 +67,14 @@ class Optimizer:
                  init_lr: float = 1e-5, max_lr: float = 7.5e-5,
                  warmup_steps: int = 15000, clip_norm: float = 1.0,
                  accum_steps: int = 1, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, weight_decay: float = 0.0):
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.names, self.params = map(list, zip(*named_params))
         self.schedule = warmup_inverse_sqrt(init_lr, max_lr, warmup_steps)
         self.clip_norm, self.accum_steps = clip_norm, accum_steps
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
         self.count = 0
         self.mini_step = 0
 
@@ -145,7 +149,8 @@ class Optimizer:
         every tensor (``torch._foreach_*``: a few launches an update where
         a loop over the tensors makes ~20 each), in optax's order:
         ``g / |g| * c``, ``(1 - b1) g + b1 mu``, ``(1 - b2) g^2 + b2 nu``,
-        ``p - lr (mu / bc1) / (sqrt(nu / bc2) + eps)``.  Every divisor here
+        ``p - lr ((mu / bc1) / (sqrt(nu / bc2) + eps) + wd p)`` (the
+        decay term only when ``wd`` is set).  Every divisor here
         and in the accumulation is a 0-d float32 tensor on the parameters'
         device, so the division is a true one as on the CPU: CUDA divides
         by a Python scalar as a product with its reciprocal, which rounds
@@ -172,6 +177,9 @@ class Optimizer:
         den = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
         torch._foreach_add_(den, self.eps)
         u = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
+        if self.weight_decay:
+            torch._foreach_add_(u, torch._foreach_mul(self.params,
+                                                      self.weight_decay))
         torch._foreach_add_(self.params, torch._foreach_mul(u, -self.last_lr))
 
     def state_dict(self) -> dict:
@@ -201,11 +209,13 @@ class Optimizer:
 
 def make_optimizer(model: torch.nn.Module, init_lr: float = 1e-5,
                    max_lr: float = 7.5e-5, warmup_steps: int = 15000,
-                   clip_norm: float = 1.0, accum_steps: int = 1
-                   ) -> Optimizer:
+                   clip_norm: float = 1.0, weight_decay: float = 0.0,
+                   accum_steps: int = 1) -> Optimizer:
     """The optimizer of the JAX ``make_optimizer`` over ``model``'s
-    parameters: clip 1.0 -> Adam -> warmup + inverse-sqrt LR
-    (pretrain_with_val_optimized.py:73-81, 233-245), MultiSteps when
+    parameters, with its arguments in its order: clip 1.0 -> Adam (with
+    optax ``adamw``'s decoupled ``weight_decay``) -> warmup + inverse-sqrt
+    LR (pretrain_with_val_optimized.py:73-81, 233-245), MultiSteps when
     ``accum_steps > 1``."""
     return Optimizer(model.named_parameters(), init_lr, max_lr,
-                     warmup_steps, clip_norm, accum_steps)
+                     warmup_steps, clip_norm, accum_steps,
+                     weight_decay=weight_decay)

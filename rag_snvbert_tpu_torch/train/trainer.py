@@ -15,7 +15,10 @@ Port of rag_snvbert_tpu/train/trainer.py (:41-645).  Reference parity
     (``torch.save``) with the parameters, the whole optimizer state (the
     accumulation buffers included), step, epoch, curriculum level and the
     early-stop fields.  The retrieval context is derived state and is not
-    checkpointed (train_embedding_rag.py:378-387);
+    checkpointed (train_embedding_rag.py:378-387).  With
+    ``async_checkpoints`` (the default, as in the JAX trainer, :491-520)
+    the file is written on a background thread while training goes on,
+    and ``finalize()`` (called at the end of ``fit``) waits for it;
   - ``init_params_from``: a warm start from another run's or a converted
     reference checkpoint's weights, with a fresh optimizer;
   - ``profile_dir``: a ``torch.profiler`` Chrome trace of ``profile_steps``
@@ -48,6 +51,7 @@ import dataclasses
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Any
 
@@ -76,7 +80,7 @@ class TrainerConfig:
     Fields with no effect in the port: ``rng_impl`` (dropout draws come
     from a torch generator per step), ``steps_per_dispatch`` (a TPU
     dispatch device: the port runs the steps one by one, with the same
-    semantics), ``async_checkpoints`` (saves are synchronous)."""
+    semantics)."""
 
     epochs: int = 20
     batch_size: int = 24
@@ -123,7 +127,9 @@ class TrainerConfig:
     # Record a host timestamp after every step into Trainer.step_marks.
     record_step_times: bool = False
     steps_per_dispatch: int = 1        # no effect here
-    async_checkpoints: bool = True     # no effect here: saves are sync
+    # Write each checkpoint on a background thread, overlapping the next
+    # epoch's steps (Trainer.save_checkpoint); False writes it in place.
+    async_checkpoints: bool = True
     keep_checkpoints: int = 3          # newest N epoch dirs (+ best); 0 all
     # torch.profiler capture: a Chrome trace (host operations and, on the
     # card, kernels) of ``profile_steps`` steady micro-steps after the first
@@ -163,6 +169,17 @@ def _with_lookahead(it):
         prev = (meta, batch)
     if prev is not None:
         yield prev[0], prev[1], None
+
+
+def _host_copy(tree):
+    """A copy of a checkpoint payload with every tensor copied to the host
+    (new storage even for a CPU tensor), so that no later in-place update
+    of a parameter or an Adam moment reaches it."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
 
 
 def _to_host(tree: dict) -> dict:
@@ -248,6 +265,8 @@ class Trainer:
         if axis_size(mesh, MODEL_AXIS) > 1:
             self.optimizer.set_tensor_parallel(axis_group(mesh, MODEL_AXIS),
                                                tp.sharded_flags(model))
+        self._saver: threading.Thread | None = None  # see save_checkpoint
+        self._save_error: BaseException | None = None
         os.makedirs(cfg.output_dir, exist_ok=True)
         self.csv_path = os.path.join(cfg.output_dir, "metrics.csv")
         self.log_path = os.path.join(cfg.output_dir, "events.jsonl")
@@ -420,6 +439,7 @@ class Trainer:
             # curriculum: add_level every N epochs, capped
             if (epoch + 1) % cfg.curriculum_every == 0:
                 self.level = min(self.level + 1, cfg.max_level)
+        self.finalize()     # commit the last epoch's checkpoint
         return {"history": history, "best": self.stopper.best,
                 "best_epoch": self.stopper.best_epoch}
 
@@ -430,23 +450,50 @@ class Trainer:
                                             f"ckpt_ep{epoch}"))
 
     def save_checkpoint(self, epoch: int, is_best: bool) -> None:
-        """Write ``ckpt_ep{epoch}/state.pt`` (synchronously, through a
-        temporary file), point ``best`` at it when ``is_best``, and drop
-        epoch dirs beyond ``keep_checkpoints`` (the best is always kept)."""
+        """Save ``ckpt_ep{epoch}/state.pt`` (through a temporary file),
+        point ``best`` at it when ``is_best``, and drop epoch dirs beyond
+        ``keep_checkpoints`` (the best is always kept).
+
+        The full tensors are gathered (a collective under tensor
+        parallelism: every rank) and copied to the host here, on the
+        calling thread: the update changes parameters and moments in
+        place, so the file holds this moment's state whatever training
+        does next.  With ``async_checkpoints`` the writer rank's file
+        work runs on a background thread; at most one save is in flight
+        (a new one waits for the previous commit, as orbax does).  A write
+        that failed raises here, at the next save, or at ``finalize``."""
         path = self._ckpt_dir(epoch)
         opt = self.optimizer.state_dict()
-        # full tensors (a collective under tensor parallelism: every rank)
         params = tp.gather_full(self.model.state_dict(), self.mesh)
         opt = {k: (tp.gather_full(v, self.mesh) if isinstance(v, dict)
                    else v) for k, v in opt.items()}
         if not self.writer:
             return
+        payload = _host_copy({
+            "params": params, "opt_state": opt,
+            "step": self.step, "epoch": epoch, "level": self.level,
+            "es_best": float(self.stopper.best),
+            "es_best_epoch": self.stopper.best_epoch,
+            "es_bad_epochs": self.stopper.bad_epochs})
+        self.finalize()
+        if not self.cfg.async_checkpoints:
+            self._write_checkpoint(path, payload, epoch, is_best)
+            return
+        self._saver = threading.Thread(
+            target=self._write_in_background,
+            args=(path, payload, epoch, is_best),
+            name=f"checkpoint-ep{epoch}")
+        self._saver.start()
+
+    def _write_in_background(self, *args) -> None:
+        try:
+            self._write_checkpoint(*args)
+        except BaseException as e:     # re-raised by finalize
+            self._save_error = e
+
+    def _write_checkpoint(self, path: str, payload: dict, epoch: int,
+                          is_best: bool) -> None:
         os.makedirs(path, exist_ok=True)
-        payload = {"params": params, "opt_state": opt,
-                   "step": self.step, "epoch": epoch, "level": self.level,
-                   "es_best": float(self.stopper.best),
-                   "es_best_epoch": self.stopper.best_epoch,
-                   "es_bad_epochs": self.stopper.bad_epochs}
         tmp = os.path.join(path, "state.pt.tmp")
         torch.save(payload, tmp)
         os.replace(tmp, os.path.join(path, "state.pt"))
@@ -456,6 +503,16 @@ class Trainer:
                 os.unlink(best)
             os.symlink(path, best)
         self._gc_checkpoints(current_epoch=epoch)
+
+    def finalize(self) -> None:
+        """Wait until the checkpoint save in flight, if any, has committed
+        (JAX trainer.py:547-550); re-raise its error if it failed."""
+        if self._saver is not None:
+            self._saver.join()
+            self._saver = None
+        err, self._save_error = self._save_error, None
+        if err is not None:
+            raise err
 
     def _gc_checkpoints(self, current_epoch: int) -> None:
         """Keep the newest ``keep_checkpoints`` epoch dirs + the best; only
@@ -480,7 +537,9 @@ class Trainer:
 
     def restore_checkpoint(self, path: str) -> None:
         """Resume weights, optimizer, step, early-stop state and curriculum
-        (train_embedding_rag.py:154-192, 325-336) from a checkpoint dir."""
+        (train_embedding_rag.py:154-192, 325-336) from a checkpoint dir
+        (after any save in flight has committed)."""
+        self.finalize()
         state = torch.load(os.path.join(path, "state.pt"),
                            map_location=self.device, weights_only=True)
         self.model.load_state_dict(tp.shard_full(state["params"], self.mesh))
@@ -510,6 +569,7 @@ class Trainer:
         from ..interop import (flax_params_of, leaf_shapes, load_flax_params,
                                load_params_checkpoint)
 
+        self.finalize()      # the checkpoint may be this run's, in flight
         loaded = load_params_checkpoint(path)
         full = tp.gather_full(self.model.state_dict(), self.mesh)
         cur, new = leaf_shapes(flax_params_of(full)), leaf_shapes(loaded)

@@ -313,6 +313,7 @@ def test_load_params_checkpoint_reads_a_trainer_checkpoint(tmp_path):
     base = {"dims": 32, "n_layers": 1, "rag_mode": "embedding"}
     tr, _ = _trainer(tmp_path, base)
     tr.save_checkpoint(0, is_best=False)
+    tr.finalize()        # the save is asynchronous (async_checkpoints)
     got = tinterop.load_params_checkpoint(str(tmp_path / "run" / "ckpt_ep0"))
     _assert_trees_equal(got, tinterop.flax_params_of(tr.model))
     assert os.path.exists(tmp_path / "run" / "ckpt_ep0" / "state.pt")

@@ -384,17 +384,20 @@ def _assert_params_equal(tm, params):
 
 
 def _optimizer_against_optax(accum: int, grad_scale: float,
-                             clipped: bool) -> None:
+                             clipped: bool, weight_decay: float = 0.0
+                             ) -> None:
     """From a state with non-zero moments, ``accum`` micro-steps of the
     port's optimizer and of optax on the same gradients: equal parameters
     after each.  ``clipped``: every micro-gradient's global norm is above
-    10 (the clip at 1.0 binds), else below 1.0."""
+    10 (the clip at 1.0 binds), else below 1.0.  ``weight_decay``: both
+    chains with ``adamw``'s decoupled decay."""
     import optax
 
     _, _, vocab = _datasets()
     params = jax.tree.map(np.asarray, _jax_params(vocab))
     rng = np.random.default_rng(accum)
-    tx = jmake_optimizer(1e-3, 2e-3, 10, accum_steps=accum)
+    tx = jmake_optimizer(1e-3, 2e-3, 10, weight_decay=weight_decay,
+                         accum_steps=accum)
     state = tx.init(params)
     update = jax.jit(tx.update)
     # Reach a state with non-zero moments and count (one full update),
@@ -403,7 +406,8 @@ def _optimizer_against_optax(accum: int, grad_scale: float,
         upd, state = update(_grads_like(params, rng, 1e-3), state, params)
         params = jax.tree.map(np.asarray, optax.apply_updates(params, upd))
     tm = _torch_model(vocab, params)
-    opt = make_optimizer(tm, 1e-3, 2e-3, 10, accum_steps=accum)
+    opt = make_optimizer(tm, 1e-3, 2e-3, 10, weight_decay=weight_decay,
+                         accum_steps=accum)
     load_optax_adam_state(opt, state)
     assert opt.count == 1 and opt.mini_step == 0
 
@@ -442,6 +446,17 @@ def test_optimizer_matches_optax_below_clip_and_over_three_micro_steps(
     """The unclipped branch (global norm below 1.0, chosen on the device),
     and an average over three micro-steps (a division by 3)."""
     _optimizer_against_optax(accum, grad_scale, clipped=grad_scale > 0.1)
+
+
+@pytest.mark.parametrize("accum,grad_scale", [(1, 0.3), (2, 0.3),
+                                              (1, 1e-5), (2, 1e-5)])
+def test_optimizer_with_weight_decay_matches_optax(accum, grad_scale):
+    """``weight_decay=0.01`` against ``optax.adamw(weight_decay=0.01)``:
+    the decay ``wd * p`` joins the Adam direction after the clip and
+    before the learning rate, once per update under accumulation, with
+    the clip binding and not."""
+    _optimizer_against_optax(accum, grad_scale, clipped=grad_scale > 0.1,
+                             weight_decay=0.01)
 
 
 # ---- the trainer ----
