@@ -16,6 +16,8 @@ just before it and read just after:
     ``probe_mxu2``, ``probe_mxu3``): every case at the genotype index shape
     (1024 x 664,648 x 2040, and 2048), each checked against the plain
     version and by its 64-bit sum of every product, beside ``_int_mm``;
+    the int4 cases through the probe's int4 pack (of refs and of refs^T),
+    held byte for byte against ``pack_int4_plain``;
   - V18 serving and training at the full ``tpu_default`` width (384d, 12
     layers, 3 heads of 128, L = 1030, a 2048-row window context): two
     imputation requests through ``ImputationService`` (batch 32), and one
@@ -811,47 +813,74 @@ def phase_index(gen) -> dict[str, int]:
 def _probe_edges(gen) -> float:
     """Every configuration of csrc/int8_probe.cu at the ragged shapes of
     PROBE_EDGE against the plain version: output and 64-bit sum exactly
-    equal.  Returns the largest absolute difference (0)."""
+    equal, the int4 pack of refs and of refs^T byte for byte, and the
+    kernel's shared memory a stage as ops/int8_probe.py mirrors it.
+    Returns the largest absolute difference (0)."""
+    from rag_snvbert_tpu_torch.ops import _build
     from rag_snvbert_tpu_torch.ops import int8_probe as probe
 
-    worst = 0
+    lib = _build.load("int8_probe", probe._SIGNATURES)
+    for mode, tiles in probe.TILES.items():
+        for tile in tiles:
+            got = lib.int8_probe_stage_bytes(probe._MODES[mode], *tile)
+            check(got == probe.stage_bytes(mode, tile),
+                  f"int8_probe {mode} {tile}: stage of {got} bytes, "
+                  f"stage_bytes says {probe.stage_bytes(mode, tile)}")
+    worst, runs = 0, 0
     for b, n, d in PROBE_EDGE:
         q = torch.randint(-128, 128, (b, d), generator=gen, device="cuda",
                           dtype=torch.int8)
         r = torch.randint(-128, 128, (n, d), generator=gen, device="cuda",
                           dtype=torch.int8)
         rt = r.t().contiguous()
+        for trans in (False, True):
+            src = rt if trans else r
+            same = torch.equal(probe.pack_int4(src, trans=trans),
+                               probe.pack_int4_plain(src, trans=trans))
+            check(same, f"int8_probe_pack_int4 trans={trans} at {(n, d)} "
+                        "differs from pack_int4_plain")
         for mode, tiles in probe.TILES.items():
             for tile in tiles:
                 for order in ("rfirst", "qfirst") if mode == "direct" \
                         else ("rfirst",):
-                    kw = {"trans": mode == "trans", "int4": mode == "int4",
-                          "running": mode != "direct"}
-                    src = rt if kw["trans"] else r
-                    out, total = probe.int8_probe(
-                        q, src, 8, 128, tile=tile, order=order,
-                        return_checksum=True, **kw)
-                    want, want_total = probe.int8_probe_plain(
-                        q, src, 8, 128, return_checksum=True, **kw)
-                    err = (out.long() - want.long()).abs().max().item()
-                    worst = max(worst, err)
-                    check(err == 0 and int(total) == int(want_total),
-                          f"int8_probe {mode} {tile} {order} at {(b, n, d)}:"
-                          f" max_abs_err {err}, sum {int(total)} vs "
-                          f"{int(want_total)}")
-    print(f"int8_probe: {sum(len(t) for t in probe.TILES.values()) + 8} "
-          f"configurations x orders at {PROBE_EDGE}: outputs and 64-bit sums "
-          f"equal to the plain version")
+                    # int4 takes refs and refs^T (the pack transposes)
+                    for trans in ((False,) if mode == "direct" else
+                                  (True,) if mode == "trans" else
+                                  (False, True)):
+                        kw = {"trans": trans, "int4": mode == "int4",
+                              "running": mode != "direct"}
+                        src = rt if trans else r
+                        out, total = probe.int8_probe(
+                            q, src, 8, 128, tile=tile, order=order,
+                            return_checksum=True, **kw)
+                        want, want_total = probe.int8_probe_plain(
+                            q, src, 8, 128, return_checksum=True, **kw)
+                        err = (out.long() - want.long()).abs().max().item()
+                        worst = max(worst, err)
+                        runs += 1
+                        check(err == 0 and int(total) == int(want_total),
+                              f"int8_probe {mode} {tile} {order} trans="
+                              f"{trans} at {(b, n, d)}: max_abs_err {err}, "
+                              f"sum {int(total)} vs {int(want_total)}")
+    print(f"int8_probe: {runs} configurations x orders x layouts at "
+          f"{PROBE_EDGE}: outputs and 64-bit sums equal to the plain "
+          "version; pack_int4 of refs and refs^T equal to pack_int4_plain; "
+          "stage bytes as stage_bytes")
     return float(worst)
 
 
-def phase_probe_mxu(gen) -> tuple[dict, dict[str, int]]:
+def phase_probe_mxu(gen) -> tuple[list[dict], dict[str, int]]:
     """The int8 probe's path: the three probe tools (python -m
     rag_snvbert_tpu_torch.tools.probe_mxu{,2,3}) run every case at the
     index shape, each checked against the plain version and by its 64-bit
-    sum inside the tool."""
+    sum inside the tool; the int4 pack of both layouts at probe_mxu3's
+    shape against its plain version.  Returns the entries of int8_probe
+    and of its int4 pack, and the launch counts."""
     from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.ops import int8_probe as probe
     from rag_snvbert_tpu_torch.tools import probe_mxu, probe_mxu2, probe_mxu3
+    from rag_snvbert_tpu_torch.tools.probe_mxu import (
+        B, D, HBM_BYTES_PER_S, N, bernoulli, bound_ms, time_ms)
 
     edge_err = _probe_edges(gen)
     torch.cuda.empty_cache()
@@ -867,16 +896,19 @@ def phase_probe_mxu(gen) -> tuple[dict, dict[str, int]]:
               f"launches, {time.perf_counter() - t:.1f} s")
     counts = ops.launch_counts(tools=True)
     cases = [r for rs in rows.values() for r in rs if "launches" in r]
-    want = {**{k: 0 for k in counts}, "int8_probe": sum(r["launches"]
-                                                         for r in cases)}
+    want = {**{k: 0 for k in counts},
+            "int8_probe": sum(r["launches"] for r in cases),
+            "int8_probe_pack_int4": sum(r.get("pack_launches", 0)
+                                        for r in cases)}
     print(f"probe launches {counts} (expected {want})")
-    check(counts == want and all(r["launches"] > 0 for r in cases),
-          "the probe tools did not go through int8_probe")
+    packs = [r for r in rows["probe_mxu3"] if "pack_ms" in r]
+    check(counts == want and all(r["launches"] > 0 for r in cases)
+          and len(packs) == 2 and all(r["pack_launches"] > 0
+                                      for r in packs),
+          "the probe tools did not go through int8_probe and its int4 pack")
     main = next(r for r in rows["probe_mxu"]
                 if r["variant"] == "pallas_mm_256x512x2048")
     lib = next(r for r in rows["probe_mxu"] if r["variant"] == "xla_int8")
-    from rag_snvbert_tpu_torch.tools.probe_mxu import B, D, N, bound_ms
-
     b_ms = bound_ms(B, N, D)
     print(f"int8_probe index shape [{B}, {D}] x [{N}, {D}]: kernel_ms "
           f"{main['ms']} ({main['cta_tile']}, kd {main['kd']}, rfirst) "
@@ -884,6 +916,41 @@ def phase_probe_mxu(gen) -> tuple[dict, dict[str, int]]:
           f"bound_ms {b_ms:.4f} (operations): {main['TOPs']} TOP/s, "
           f"{b_ms / main['ms']:.1%} of the bound, "
           f"{main['ms'] / lib['ms']:.3f}x the library call")
+    d3 = probe_mxu3.D
+    b3 = bound_ms(B, N, d3)
+    for r in rows["probe_mxu3"]:
+        if "cta_tile" in r:
+            pack = r.get("pack_ms")
+            print(f"probe_mxu3 {r['variant']} ({r['cta_tile']}): kernel_ms "
+                  f"{r['ms']} (the whole call), pack_ms "
+                  f"{pack if pack is not None else '-'}, "
+                  f"{r['pct_of_bound']}% of the {b3:.4f} ms bound; "
+                  f"plain_ms {r['plain_ms']}")
+    # the int4 pack at probe_mxu3's shape: refs^T (the transposed pass, the
+    # entry's time) and refs, against its plain version on the same inputs
+    refs = bernoulli((N, d3), 0)
+    pack_rows = {}
+    for trans in (True, False):
+        src = refs.t().contiguous() if trans else refs
+        same = torch.equal(probe.pack_int4(src, trans=trans),
+                           probe.pack_int4_plain(src, trans=trans))
+        check(same, f"int8_probe_pack_int4 trans={trans} at the index shape "
+                    "differs from pack_int4_plain")
+        ms = time_ms(lambda: probe.pack_int4(src, trans=trans))
+        plain = time_ms(lambda: probe.pack_int4_plain(src, trans=trans))
+        moved = N * d3 + N * 16 * -(-d3 // 32)
+        pack_rows[trans] = {
+            "variant": "refs_t" if trans else "refs", "ms": round(ms, 4),
+            "plain_ms": round(plain, 4),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        print(f"int8_probe_pack_int4 {pack_rows[trans]['variant']} [{N}, "
+              f"{d3}]: kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+              f"{pack_rows[trans]['bound_ms']:.4f} (bytes: {moved / 1e9:.2f} "
+              "GB read once and written once at 3.35 TB/s), equal to the "
+              "plain version")
+        del src
+    del refs
+    torch.cuda.empty_cache()
     keep = ("variant", "ms", "TOPs", "pct_of_bound", "cta_tile", "kd",
             "order", "plain_ms", "pack_ms", "note")
     entry = {"name": "int8_probe", "route": "cuda",
@@ -899,7 +966,16 @@ def phase_probe_mxu(gen) -> tuple[dict, dict[str, int]]:
              "library_ms": lib["ms"],
              "by_shape": [{k: r[k] for k in keep if k in r}
                           for rs in rows.values() for r in rs]}
-    return entry, counts
+    pack_entry = {"name": "int8_probe_pack_int4", "route": "cuda",
+                  "source": "rag_snvbert_tpu_torch/csrc/int8_probe.cu",
+                  "replaces": "tools/probe_mxu3.py:58",
+                  "max_abs_err": 0.0,
+                  "ms": pack_rows[True]["ms"],
+                  "plain_ms": pack_rows[True]["plain_ms"],
+                  "bound_ms": pack_rows[True]["bound_ms"],
+                  "bound_by": "bytes", "library_ms": None,
+                  "by_shape": list(pack_rows.values())}
+    return [entry, pack_entry], counts
 
 
 def _drop(vcf, keep):
@@ -3469,8 +3545,8 @@ def main() -> None:
     print(f"l2_topk_float phase {time.perf_counter() - t:.1f} s")
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    probe_entry, probe_counts = phase_probe_mxu(gen)
-    kernels.append(probe_entry)
+    probe_entries, probe_counts = phase_probe_mxu(gen)
+    kernels.extend(probe_entries)
     print(f"probe_mxu phase {time.perf_counter() - t:.1f} s")
     paths = {"probe_mxu": probe_counts}
     for name, phase in (("serving", phase_serving),
@@ -3491,7 +3567,7 @@ def main() -> None:
         print(f"{name} phase {time.perf_counter() - t:.1f} s")
     for kern in kernels:
         # the model and index paths count the five model kernels; only the
-        # probe tools launch int8_probe
+        # probe tools launch int8_probe and its int4 pack
         by_path = {p: c.get(kern["name"], 0) for p, c in paths.items()}
         kern["launches"] = sum(by_path.values())
         kern["launches_by_path"] = by_path

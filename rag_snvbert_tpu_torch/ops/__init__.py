@@ -4,10 +4,11 @@ versions.
 Each wrapper counts its kernel launches in a plain integer attribute
 (``attention.launches``, ``attention_bwd.launches``, ``l2_topk.launches``,
 ``l2_topk_rf.launches``, ``l2_topk_float.launches``,
-``int8_probe.launches``), so a run can show that the main path went
-through the kernels.  ``launch_counts()`` reads the model and index paths'
-kernels; ``launch_counts(tools=True)`` adds the int8 probe, which only the
-probe tools (``tools/probe_mxu*.py``) launch.
+``int8_probe.launches``, ``int8_probe.pack_int4.launches``), so a run
+can show that the main path went through the kernels.  ``launch_counts()``
+reads the model and index paths' kernels; ``launch_counts(tools=True)``
+adds the int8 probe and its int4 pack, which only the probe tools
+(``tools/probe_mxu*.py``) launch.
 """
 
 from .attention import attention, attention_bwd
@@ -19,7 +20,8 @@ from .l2_topk_rf import l2_topk_rf
 WRAPPERS = {"attention": attention, "attention_bwd": attention_bwd,
             "l2_topk": l2_topk, "l2_topk_rf": l2_topk_rf,
             "l2_topk_float": l2_topk_float}
-TOOL_WRAPPERS = {"int8_probe": _int8_probe.int8_probe}
+TOOL_WRAPPERS = {"int8_probe": _int8_probe.int8_probe,
+                 "int8_probe_pack_int4": _int8_probe.pack_int4}
 
 
 def launch_counts(tools: bool = False) -> dict[str, int]:

@@ -21,15 +21,22 @@ top-k epilogue.  It returns what those ``pallas_call``s return:
 
 Sums wrap in int32, as on the TPU.  ``tq``, ``tn`` (and probe_mxu's ``td``,
 which pads d with zeros) decide only the padding and which ref rows the
-output holds: the kernel's own tiles are ``tile`` (BM x BN query rows x
-refs, ``TILES``) and ``kd`` (bytes of d a pipeline stage), walked in
-``order`` ("qfirst": query-tile-major, "rfirst": ref-tile-major; the TPU
-probes' "par" runs as its order twin).  With ``return_checksum`` the
-wrapper also returns the kernel's 64-bit sum of every product it took
-(int64, 0-d), which equals ``checksum_of(q, r)``.
+output holds: the kernel's own tiles are ``tile`` (``TILES``; the last
+entry is ``kd``, bytes of d a pipeline stage), walked in ``order``
+("qfirst": query-tile-major, "rfirst": ref-tile-major; the TPU probes'
+"par" runs as its order twin).  A direct tile is BM query rows x BN refs;
+a ``trans`` or ``int4`` tile is BR refs x BQ query rows, because those
+modes turn the product around (the refs are wgmma's A operand, converted
+in registers: csrc/int8_probe.cu).  ``k_rows_of``, ``trans_d_order`` and
+``ref_rows_of`` are the orders the ``trans`` kernel and its query copy
+share; ``stage_bytes`` mirrors the kernel's shared memory a stage.  With
+``return_checksum`` the wrapper also returns the kernel's 64-bit sum of
+every product it took (int64, 0-d), which equals ``checksum_of(q, r)``.
 
-``int8_probe`` takes the plain version for CPU tensors only; a CUDA tensor
-goes to the kernel, or the wrapper raises on what the kernel does not take.
+``int8_probe`` and ``pack_int4`` take their plain versions
+(``int8_probe_plain``, ``pack_int4_plain``) for CPU tensors only; a CUDA
+tensor goes to the kernel, or the wrapper raises on what the kernel does
+not take.
 """
 
 from __future__ import annotations
@@ -44,20 +51,22 @@ import torch.nn.functional as F
 from . import _build
 
 OUT_COLS = 128
-# (BM, BN, KD) built for each producer (csrc/int8_probe.cu I8P_LAUNCH)
+# the tiles built for each producer (csrc/int8_probe.cu I8P_DIRECT, I8P_RS):
+# direct (BM query rows, BN refs, KD); trans and int4 (BR refs, BQ query
+# rows, KD)
 TILES = {"direct": ((128, 128, 128), (128, 128, 64), (128, 192, 128),
                     (128, 192, 64), (128, 256, 128), (128, 256, 64),
                     (256, 128, 128), (256, 128, 64)),
-         "trans": ((128, 128, 128), (128, 192, 128)),
-         "int4": ((128, 128, 128), (128, 256, 128))}
+         "trans": ((128, 256, 128),),
+         "int4": ((128, 256, 128),)}
 # the fastest of each producer on an H100 (PERF.md, the int8 probes)
-DEFAULT_TILE = {"direct": (256, 128, 128), "trans": (128, 192, 128),
+DEFAULT_TILE = {"direct": (256, 128, 128), "trans": (128, 256, 128),
                 "int4": (128, 256, 128)}
 _MODES = {"direct": 0, "trans": 1, "int4": 2}
 _ORDERS = {"qfirst": 0, "rfirst": 1}
 _MAX_STAGES = 8
-_SMEM_MAX = 232448    # dynamic shared memory a block may use on an H100
-_BARS = 3 * _MAX_STAGES * 8 + 1024
+SMEM_MAX = 232448     # dynamic shared memory a block may use on an H100
+_BARS = 2 * _MAX_STAGES * 8 + 1024
 _SIGNATURES = {
     "int8_probe_s8": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -65,7 +74,7 @@ _SIGNATURES = {
                      + [ctypes.c_void_p],
     "int8_probe_stage_bytes": [ctypes.c_int] * 4,
     "int8_probe_pad_queries": [ctypes.c_void_p, ctypes.c_void_p]
-                              + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                              + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "int8_probe_pack_int4": [ctypes.c_void_p, ctypes.c_void_p]
                             + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "int8_probe_running_sum": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -135,23 +144,68 @@ def row_classes(width: int, rows: int) -> int:
     return f if rows % f == 0 else 0
 
 
+def stage_bytes(mode: str, tile: tuple[int, int, int]) -> int:
+    """Shared memory of one pipeline stage (csrc/int8_probe.cu ``Cfg`` and
+    ``RsCfg``::kStage): direct, the query and ref panels; trans and int4,
+    the query panel and the raw ref tile (trans: each warpgroup's half as
+    KD d rows of BR / 2 + 16 bytes; int4: BR packed rows of KD / 2 bytes),
+    rounded up to 1024 bytes."""
+    a, b, kd = tile
+    if mode == "direct":
+        return (a + b) * kd
+    raw = 2 * kd * (a // 2 + 16) if mode == "trans" else a * kd // 2
+    return b * kd + _round_up(raw, 1024)
+
+
+def k_rows_of(kd: int) -> list[int]:
+    """trans: the landed row (of a warpgroup's ``[kd, BR / 2 + 16]`` half
+    of the raw tile) that k position p of a chunk reads (csrc ``k_row``).
+    p = 32 ks + 16 h + 4 q + j, for the wgmma k32 step ks, register pair h
+    (a[0..1] or a[2..3]), lane % 4 = q and byte j, reads row 32 ks + 16 h
+    + 8 (j >> 1) + 2 q + (j & 1): the four lanes of a quad read rows two
+    apart, 8 banks apart with rows of BR / 2 + 16 bytes.  A bijection of
+    0 .. kd - 1."""
+    return [32 * (p // 32) + 16 * (p // 16 % 2) + 8 * (p % 4 >> 1)
+            + 2 * (p // 4 % 4) + (p % 2) for p in range(kd)]
+
+
+def trans_d_order(kd: int, classes: int) -> list[int]:
+    """trans: the d offset (in a chunk of kd) of the query column that k
+    position p carries, under ``classes`` d row classes: landed row i of
+    class cd's box (row cd kd / F + i) is d = F i + cd (csrc
+    ``trans_d_of``; the query copy is laid out in this order)."""
+    rows = kd // classes
+    return [classes * (r % rows) + r // rows for r in k_rows_of(kd)]
+
+
+def ref_rows_of(mode: str) -> torch.Tensor:
+    """trans and int4: the ref (row of a 128-ref tile) that each
+    accumulator row holds, int64 ``[2 warpgroups, 4 warps, 2, 8]`` indexed
+    by (wg, warp, i, g) for fragment row 16 warp + g + 8 i of warpgroup
+    wg's m64 slab (csrc ``ref_row``).  trans: rows g and g + 8 are the
+    adjacent refs 2 g, 2 g + 1 (one 16-bit load at a d row gives both);
+    int4: in order."""
+    wg, w, i, g = torch.meshgrid(
+        *(torch.arange(x) for x in (2, 4, 2, 8)), indexing="ij")
+    if mode == "trans":
+        return 64 * wg + 16 * w + 2 * g + i
+    return 64 * wg + 16 * w + 8 * i + g
+
+
 def plan(b: int, n: int, d: int, mode: str, tile: tuple[int, int, int],
          stage_bytes: int, sm_count: int) -> dict:
-    """The launch of one call: row classes, the query copy's width (0: the
-    queries go as they are), the output tiles, the grid (one block an SM,
-    persistent) and the ring's depth within shared memory."""
-    bm, bn, kd = tile
+    """The launch of one call: row classes (direct: of the refs' rows;
+    trans: of refs^T's d rows), the output tiles, the grid (one block an
+    SM, persistent) and the ring's depth within shared memory."""
     if mode == "direct":
-        classes, n_view = row_classes(d, n), 0
-        if classes:
-            n_view = n // classes
+        bm, bn, _ = tile
+        classes = row_classes(d, n)
+        tiles = -(-b // bm) * classes * -(-(n // max(classes, 1)) // bn)
     else:
+        br, bq, _ = tile
         classes = row_classes(n, d) if mode == "trans" else 1
-        n_view = n
-    tiles_n = (classes * -(-n_view // bn) if mode == "direct"
-               else -(-n // bn))
-    tiles = -(-b // bm) * tiles_n
-    stages = min(_MAX_STAGES, (_SMEM_MAX - _BARS) // stage_bytes)
+        tiles = -(-b // bq) * -(-n // br)
+    stages = min(_MAX_STAGES, (SMEM_MAX - _BARS) // stage_bytes)
     return {"classes": classes, "tiles": tiles,
             "grid": max(1, min(tiles, sm_count)), "stages": stages}
 
@@ -217,7 +271,7 @@ def int8_probe(q: torch.Tensor, r: torch.Tensor, tq: int, tn: int, *,
             "divide the row count")
     if mode == "trans" and n % 4:
         raise ValueError("int8_probe: refs^T needs N a multiple of 4 (the "
-                         "transposing pass reads 4-byte words)")
+                         "consumers read its rows in 2- or 4-byte words)")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     bp = _round_up(b, tq)
     out = torch.empty(bp, OUT_COLS, dtype=torch.int32, device=q.device)
@@ -225,25 +279,24 @@ def int8_probe(q: torch.Tensor, r: torch.Tensor, tq: int, tn: int, *,
     with torch.cuda.device(q.device):
         # queries: as they are where their rows are 128-byte strided, else
         # a copy with such rows (box rows that straddle 128-byte lines set
-        # the pace: csrc/int8_probe.cu), one per row class shifted to the
-        # classes' boxes, wrapped to 4 bits for int4
+        # the pace: csrc/int8_probe.cu): direct, one per row class shifted
+        # to the classes' boxes; trans, in each chunk's k order
+        # (trans_d_order); int4, wrapped to 4 bits
         classes = p["classes"] if mode == "direct" else 1
-        if int4 or classes > 1 or d % 128:
+        if mode != "direct" or classes > 1 or d % 128:
             qw = _round_up(d + (15 if classes > 1 else 0), 128)
             qk = torch.empty(classes * b, qw, dtype=torch.int8,
                              device=q.device)
+            trans_kd = tile[2] if mode == "trans" else 0
             _build.check(lib.int8_probe_pad_queries(
                 q.data_ptr(), qk.data_ptr(), b, d, qw, classes, int(int4),
-                stream), "int8_probe_pad_queries")
+                trans_kd, p["classes"], stream), "int8_probe_pad_queries")
         else:
             qk, qw = q, d
         rk, r_stride = r, (n if trans else d)
         if int4:
-            r_stride = 16 * -(-d // 32)
-            rk = torch.empty(n, r_stride, dtype=torch.int8, device=q.device)
-            _build.check(lib.int8_probe_pack_int4(
-                r.data_ptr(), rk.data_ptr(), n, d, r_stride, int(trans),
-                stream), "int8_probe_pack_int4")
+            rk = pack_int4(r, trans=trans)
+            r_stride = rk.shape[1]
         _build.check(lib.int8_probe_s8(
             qk.data_ptr(), qw, b, rk.data_ptr(), r_stride, out.data_ptr(),
             total.data_ptr(), b, n, d, _MODES[mode], *tile, p["classes"],
@@ -262,10 +315,35 @@ def int8_probe(q: torch.Tensor, r: torch.Tensor, tq: int, tn: int, *,
 int8_probe.launches = 0
 
 
+def pack_int4_plain(r: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """refs ``[N, D]`` (or refs^T ``[D, N]``) to the packed nibbles
+    ``[N, 16 ceil(D / 32)]`` int8 that the int4 producer reads: byte j of
+    16-byte group p holds the low 4 bits of column 32 p + j (low nibble)
+    and of column 32 p + 16 + j (high nibble), zero past D."""
+    rows = r.t() if trans else r
+    n, d = rows.shape
+    groups = -(-d // 32)
+    nib = torch.zeros(n, 32 * groups, dtype=torch.uint8, device=r.device)
+    nib[:, :d] = (rows.to(torch.int16) & 15).to(torch.uint8)
+    nib = nib.view(n, groups, 2, 16)
+    packed = nib[:, :, 0] | (nib[:, :, 1] << 4)
+    return packed.reshape(n, 16 * groups).view(torch.int8)
+
+
 def pack_int4(r: torch.Tensor, trans: bool = False) -> torch.Tensor:
-    """The int4 producer's first step alone (to time it apart): refs (or
-    refs^T) to the packed nibbles ``[N, 16 ceil(D / 32)]`` the kernel
-    reads."""
+    """The int4 producer's first step (``pack_int4_plain``'s layout) on r's
+    device: refs by a coalesced pass a 16-byte group a thread, refs^T by a
+    tiled transpose through shared memory (csrc/int8_probe.cu
+    ``pack_int4_rows``, ``pack_int4_cols``).  Called by ``int8_probe``
+    for int4, and alone to time it apart."""
+    if r.dtype != torch.int8 or r.dim() != 2 or 0 in r.shape:
+        raise ValueError(f"pack_int4: r must be non-empty 2-D int8, got "
+                         f"{r.dtype} {tuple(r.shape)}")
+    if r.device.type == "cpu":
+        return pack_int4_plain(r, trans)
+    if r.device.type != "cuda" or not r.is_contiguous() or r.data_ptr() % 16:
+        raise ValueError("pack_int4: r must be a contiguous CUDA tensor on "
+                         "a 16-byte boundary")
     n, d = (r.shape[1], r.shape[0]) if trans else r.shape
     lib = _build.load("int8_probe", _SIGNATURES)
     pw = 16 * -(-d // 32)
@@ -275,4 +353,8 @@ def pack_int4(r: torch.Tensor, trans: bool = False) -> torch.Tensor:
             r.data_ptr(), out.data_ptr(), n, d, pw, int(trans),
             torch.cuda.current_stream(r.device).cuda_stream),
             "int8_probe_pack_int4")
+    pack_int4.launches += 1
     return out
+
+
+pack_int4.launches = 0

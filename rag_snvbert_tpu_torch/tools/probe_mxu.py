@@ -83,6 +83,7 @@ def kernel_case(variant: str, q, r, tq: int, tn: int, **kw) -> dict:
     (the plain version too: ``plain_ms``)."""
     plain_kw = {k: kw[k] for k in ("trans", "running", "int4") if k in kw}
     launches = probe.int8_probe.launches
+    packs = probe.pack_int4.launches
     out, total = probe.int8_probe(q, r, tq, tn, return_checksum=True, **kw)
     want, want_total = probe.int8_probe_plain(q, r, tq, tn,
                                               return_checksum=True,
@@ -107,7 +108,8 @@ def kernel_case(variant: str, q, r, tq: int, tn: int, **kw) -> dict:
                kd=tile[2], order=kw.get("order", "rfirst"),
                checksum=int(total), max_abs_err=err,
                plain_ms=round(plain_ms, 4),
-               launches=probe.int8_probe.launches - launches)
+               launches=probe.int8_probe.launches - launches,
+               pack_launches=probe.pack_int4.launches - packs)
 
 
 def library_int8(q, refs, reduce: str) -> dict:

@@ -31,6 +31,15 @@ device; run from the repository root:
     python -m rag_snvbert_tpu_torch.tools.search_ab \\
         --variant parent=build/parent/rag_snvbert_tpu_torch
 
+``--only int8_probe`` times the int8 probe instead (it is not in the
+default set): probe_mxu3's five cases (each variant with its own
+``TPU_CASES`` tiles: the tiles' meaning may change between commits) and
+probe_mxu's and probe_mxu2's ``256x128`` cases at d = 2040 (``rfirst``,
+``qfirst``), each checked against the plain version (output and 64-bit
+sum exactly), timed in turns, split by kernel (the int4 cases' pack apart,
+and timed alone), with each variant's ptxas registers and spills per
+instantiation.
+
 ``--only l2_topk``, ``--only l2_topk_rf`` or ``--only l2_topk_float`` runs
 one kernel's part;
 ``--rows N`` cuts the index to N rows (a quick check); ``--no-check`` goes
@@ -92,8 +101,11 @@ def load_variant(label: str, pkg_dir: Path):
         module = importlib.util.module_from_spec(spec)
         sys.modules[name] = module
         spec.loader.exec_module(module)
-    return {part: importlib.import_module(f"{name}.ops.{part}")
-            for part in ("_build", "l2_topk", "l2_topk_rf", "l2_topk_float")}
+    mods = {part: importlib.import_module(f"{name}.ops.{part}")
+            for part in ("_build", "l2_topk", "l2_topk_rf", "l2_topk_float",
+                         "int8_probe")}
+    mods["probe_mxu3"] = importlib.import_module(f"{name}.tools.probe_mxu3")
+    return mods
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -362,12 +374,90 @@ def run_float(mods, labels, iters, gen, rows) -> dict:
     return out
 
 
+def run_probe(mods, labels, iters, gen) -> dict:
+    """The int8 probe's cases (see the module docstring), at B = 1024, N =
+    664,648 and d = 2048 (probe_mxu3) or 2040 (probe_mxu, probe_mxu2)."""
+    from .probe_mxu import B, N, bound_ms as probe_bound_ms
+    from .probe_mxu3 import D as D3, TQ as TQ3
+
+    refs = torch.randint(0, 2, (N, D3), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    refs_t = refs.t().contiguous()
+    q = torch.randint(0, 2, (B, D3), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    refs40 = torch.randint(0, 2, (N, 2040), generator=gen, device="cuda",
+                           dtype=torch.int8)
+    q40 = torch.randint(0, 2, (B, 2040), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    # (case, q, refs, tq, tn, kwargs, tile of each variant or None)
+    cases = []
+    for i, case in enumerate(mods["this"]["probe_mxu3"].TPU_CASES):
+        name, trans, int4, tn = case[:4]
+        tiles = {lab: mods[lab]["probe_mxu3"].TPU_CASES[i][4]
+                 for lab in labels}
+        cases.append((name, q, refs_t if trans else refs, TQ3, tn,
+                      {"trans": trans, "int4": int4, "running": True},
+                      tiles))
+    for order in ("rfirst", "qfirst"):
+        cases.append((f"d2040_256x128_{order}", q40, refs40, 256, 512,
+                      {"order": order}, None))
+    out = {}
+    for name, qc, rc, tq, tn, kw, tiles in cases:
+        plain_kw = {k: v for k, v in kw.items() if k != "order"}
+        want, want_total = mods["this"]["int8_probe"].int8_probe_plain(
+            qc, rc, tq, tn, return_checksum=True, **plain_kw)
+
+        def make(lab, checksum=True):
+            fn = mods[lab]["int8_probe"].int8_probe
+            extra = {"tile": tiles[lab]} if tiles else {}
+            return lambda: fn(qc, rc, tq, tn, checksum=checksum, **kw,
+                              **extra)
+
+        for lab in labels:
+            fn = mods[lab]["int8_probe"].int8_probe
+            extra = {"tile": tiles[lab]} if tiles else {}
+            got, total = fn(qc, rc, tq, tn, return_checksum=True, **kw,
+                            **extra)
+            same = torch.equal(got, want) and int(total) == int(want_total)
+            print(f"int8_probe {name} {lab} tile {extra.get('tile')}: "
+                  f"output and 64-bit sum equal to plain {same}")
+            if not same:
+                disagrees(f"int8_probe {name} {lab}")
+            del got
+        del want
+        yard = make(labels[0])
+        ms, lib = in_turns(labels, make, yard, iters)
+        b, d = qc.shape
+        n = rc.shape[1] if kw.get("trans") else rc.shape[0]
+        bound = probe_bound_ms(b, n, d)
+        splits = {lab: kernel_split(make(lab)) for lab in labels}
+        hosts = {lab: host_us(make(lab), 20) for lab in labels}
+        out[name] = report(f"int8_probe {name}", labels, ms, lib,
+                           f"{labels[0]} again", bound, splits, hosts)
+        if kw.get("int4"):
+            src = rc
+            pack = {lab: [] for lab in labels}
+            for lab in labels + labels[::-1]:
+                fn = mods[lab]["int8_probe"].pack_int4
+                pack[lab].append(time_ms(
+                    lambda: fn(src, trans=kw["trans"]), iters))
+            for lab in labels:
+                m = statistics.mean(pack[lab])
+                out[name]["variants"][lab]["pack_ms"] = pack[lab]
+                print(f"int8_probe {name} {lab}: pack alone ms "
+                      f"{[round(x, 4) for x in pack[lab]]} mean {m:.4f} "
+                      f"({(src.numel() * 1.5) / 3.35e12 * 1e3:.4f} ms "
+                      "bound: read once, half written, at 3.35 TB/s)")
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
                     metavar="LABEL=DIR")
     ap.add_argument("--only", choices=("l2_topk", "l2_topk_rf",
-                                       "l2_topk_float"))
+                                       "l2_topk_float", "int8_probe"))
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--rows", type=int, default=0,
                     help="rows of the genotype index (default: all 664,648)")
@@ -395,6 +485,10 @@ def main(argv=None) -> None:
         for name in names:
             print(f"--- {lab} {name}.cu")
             print(mods[lab]["_build"].ptxas_log(name).strip())
+            for kernel, regs, st, ld in mods[lab]["_build"].ptxas_entries(
+                    name):
+                print(f"ptxas {lab} {kernel}: {regs} registers, spills "
+                      f"{st} / {ld} bytes")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary: dict = {"card": card}
@@ -408,6 +502,8 @@ def main(argv=None) -> None:
     if "l2_topk_float" in names:
         summary["l2_topk_float"] = run_float(mods, labels, args.iters, gen,
                                              args.rows)
+    if "int8_probe" in names:
+        summary["int8_probe"] = run_probe(mods, labels, args.iters, gen)
     print(card)
     print(json.dumps(summary))
 

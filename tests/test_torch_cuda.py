@@ -1052,6 +1052,52 @@ def test_int8_probe_refuses_what_tma_cannot_take(cuda):
                    8, 128, tile=(64, 64, 64))
 
 
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_int8_probe_int4_from_refs_t_matches_plain(cuda, shape):
+    from rag_snvbert_tpu_torch.ops.int8_probe import (TILES, int8_probe,
+                                                      int8_probe_plain)
+
+    b, n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(b * n + d)
+    q = torch.randint(-128, 128, (b, d), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    rt = torch.randint(-128, 128, (d, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    kw = {"trans": True, "int4": True, "running": True}
+    want, want_total = int8_probe_plain(q, rt, 8, 128, return_checksum=True,
+                                        **kw)
+    for tile in TILES["int4"]:
+        out, total = int8_probe(q, rt, 8, 128, tile=tile,
+                                return_checksum=True, **kw)
+        assert torch.equal(out, want) and int(total) == int(want_total)
+
+
+@pytest.mark.parametrize("trans", [False, True], ids=["refs", "refs_t"])
+@pytest.mark.parametrize("n,d", [(1, 1), (37, 70), (1000, 2040),
+                                 (5003, 2048)])
+def test_pack_int4_matches_plain(cuda, n, d, trans):
+    from rag_snvbert_tpu_torch.ops.int8_probe import (pack_int4,
+                                                      pack_int4_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    r = torch.randint(-128, 128, (n, d), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    src = r.t().contiguous() if trans else r
+    before = ops.launch_counts(tools=True)["int8_probe_pack_int4"]
+    got = pack_int4(src, trans=trans)
+    assert ops.launch_counts(tools=True)["int8_probe_pack_int4"] == before + 1
+    assert torch.equal(got, pack_int4_plain(src, trans=trans))
+
+
+def test_int8_probe_refuses_refs_t_of_odd_width(cuda):
+    from rag_snvbert_tpu_torch.ops.int8_probe import int8_probe
+
+    q = torch.zeros(4, 64, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        int8_probe(q, torch.zeros(64, 258, dtype=torch.int8, device=cuda),
+                   8, 128, trans=True)
+
+
 @pytest.mark.parametrize("mode", ["fwd_bwd", "fwd"])
 @pytest.mark.parametrize("shape", [(2, 40, 48, 24), (3, 7, 384, 1536),
                                    (2, 5, 13, 9)])
