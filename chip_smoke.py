@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``rag_snvbert_tpu_torch/csrc`` (one nvcc
 per source, started together) and holds each kernel against its plain
-PyTorch version at the main paths' shapes.  Then it drives eleven paths
+PyTorch version at the main paths' shapes.  Then it drives these paths
 with seeded random weights or data, each with the launch counts set to 0
 just before it and read just after:
   - the int8 probe tools (``python -m rag_snvbert_tpu_torch.tools.probe_mxu``,
@@ -35,6 +35,14 @@ just before it and read just after:
     micro-steps, an async checkpoint overlapping the second, ``finalize``
     and a restore); V17 training at batch 16 with ``True`` and
     ``"save_most"``; the alternative fusions at 384d against the CPU;
+  - ``steps_per_dispatch`` (``phase_dispatch``): training chunks as CUDA
+    graph replays, bit for bit against single steps under deterministic
+    algorithms: V18 (batch 24, accumulation 2, K = 4: chunks of 4 and 1
+    whose accumulation phase moves between windows), V17 (batch 8, K =
+    4, ``l2_topk_rf`` inside the graphs), each remat mode,
+    ``int8_matmuls`` and a one-rank NCCL mesh at K = 2; a gloo mesh is
+    refused; K = 1 and K = 4 timed in turns (with ``--profile`` one chunk
+    and the same steps one by one under torch.profiler);
   - the offline index at the genotype-index shape (1024 queries of 2040
     columns against 664,648 rows, k = 10): packed (pack 8), int8, bf16 and
     float32 ``FlatL2Index`` searches and masked searches, save/load round
@@ -71,6 +79,7 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2914,6 +2923,256 @@ def phase_remat(profile: bool = False) -> dict[str, int]:
 # (PROB_MEAN_TOL, PROB_MAX_TOL: bf16 roundings; tp3 sums its row-parallel
 # partial products in bf16); the sharded genotype index exactly (integer
 # distances, ties to the lower id on both sides).
+DISPATCH_DIR = "runs/chip_smoke_dispatch"
+DISPATCH_K = 4
+DISPATCH_KERNELS = {"tpu_default": ("attention", "attention_bwd", "l2_topk"),
+                    "v17_token_rag": ("l2_topk_rf",)}
+
+
+def _dispatch_trainer(preset: str, ds, vocab: int, k: int, batch: int,
+                      out: str, mesh=None, **model_kw):
+    """A fresh ``Trainer`` of ``preset`` (seed 0; ``model_kw`` replaces
+    model fields) over ``ds``: one epoch at ``batch`` with the preset's
+    accumulation and schedule, no validation, ``steps_per_dispatch=k``."""
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = PRESETS[preset]
+    if model_kw:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, **model_kw))
+    shutil.rmtree(out, ignore_errors=True)
+    tcfg = TrainerConfig(
+        epochs=1, batch_size=batch, val_batch_size=batch,
+        init_lr=cfg.init_lr, max_lr=cfg.max_lr, warmup_steps=cfg.warmup_steps,
+        grad_accum_steps=cfg.grad_accum_steps, focal_gamma=cfg.focal_gamma,
+        rag_k=cfg.rag_k, ref_pad_haps=2048, output_dir=out, log_freq=1000,
+        seed=0, rag_mode=cfg.model.rag_mode, steps_per_dispatch=k,
+        record_step_times=True, async_checkpoints=False, keep_checkpoints=1)
+    return Trainer(build_model(cfg, vocab, seed=0), ds, tcfg, mesh=mesh)
+
+
+def _dispatch_fit(trainer) -> dict:
+    """One epoch of ``trainer.fit()``: its metrics (not the seconds), its
+    parameters, Adam moments and counters on the host, the launches, the
+    seconds, peak device memory (allocated and reserved: a graph's
+    replays allocate nothing, its pool is reserved) and the runner's
+    graphs, replays and launches inside replays."""
+    from rag_snvbert_tpu_torch import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    row = trainer.fit()["history"][0]
+    torch.cuda.synchronize()
+    opt, runner = trainer.optimizer, trainer.runner
+    return {
+        "s": time.perf_counter() - t,
+        "row": {k: v for k, v in row.items() if "seconds" not in k},
+        "params": {k: v.detach().cpu() for k, v in
+                   trainer.model.state_dict().items()},
+        "moments": [x.detach().cpu() for x in (*opt.mu, *opt.nu,
+                                               *(opt.acc or []))],
+        "counters": (opt.count, opt.mini_step, trainer.step),
+        "launches": ops.launch_counts(),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+        "graphs": 0 if runner is None else len(runner.graphs),
+        "replays": 0 if runner is None else runner.replays,
+        "replayed": None if runner is None else dict(runner.replayed)}
+
+
+def _dispatch_pair(name: str, preset: str, ds, vocab: int, k: int,
+                   batch: int, kernels: tuple, mesh=None,
+                   **model_kw) -> dict:
+    """Under deterministic algorithms, one epoch at K = 1 and one at
+    ``k`` from the same seeded weights: parameters, Adam moments,
+    counters and every epoch metric held bit for bit, each kernel of
+    ``kernels`` launched inside the replays as often as K = 1 launched
+    it.  Returns the K = ``k`` run's launches (replays and warm-ups)."""
+    runs = {}
+    with _deterministic():
+        for kk in (1, k):
+            trainer = _dispatch_trainer(
+                preset, ds, vocab, kk, batch,
+                os.path.join(DISPATCH_DIR, f"{name}_k{kk}"), mesh,
+                **model_kw)
+            runs[kk] = _dispatch_fit(trainer)
+            del trainer
+    one, many = runs[1], runs[k]
+    differ = [n for n, v in one["params"].items()
+              if not torch.equal(many["params"][n], v)]
+    same = {"params": not differ,
+            "moments": all(torch.equal(a, b) for a, b in
+                           zip(one["moments"], many["moments"])),
+            "metrics": one["row"] == many["row"],
+            "counters": one["counters"] == many["counters"]}
+    inside = {n: many["replayed"][n] for n in kernels}
+    want = {n: one["launches"][n] for n in kernels}
+    print(f"dispatch {name}: {one['counters'][2]} micro-steps at batch "
+          f"{batch}, K = {k}: {many['graphs']} graphs captured, "
+          f"{many['replays']} replays; train_loss "
+          f"{many['row']['train_loss']!r} (K = 1 {one['row']['train_loss']!r});"
+          f" bit for bit against K = 1: {same}"
+          + (f" (parameters differ: {differ[:6]})" if differ else "")
+          + f"; launches inside replays {inside} (K = 1 launched {want}); "
+          f"all launches {many['launches']} (K = 1 {one['launches']}); "
+          f"fit {one['s']:.2f} s / {many['s']:.2f} s; peak allocated "
+          f"{one['peak_gb']:.2f} / {many['peak_gb']:.2f} GB, reserved "
+          f"{one['reserved_gb']:.2f} / {many['reserved_gb']:.2f} GB "
+          f"(K = 1 / K = {k})")
+    if not same["metrics"]:
+        print("  metrics K = 1: " + json.dumps(one["row"]))
+        print(f"  metrics K = {k}: " + json.dumps(many["row"]))
+    check(all(same.values()), f"dispatch {name}: K = {k} is not bit-identical"
+          f" to K = 1: {same}")
+    check(inside == want, f"dispatch {name}: the kernels were not launched "
+          f"inside the graphs as often as by single steps")
+    check(many["graphs"] >= 1 and many["replays"] >= 1,
+          f"dispatch {name}: no graph was replayed")
+    return many["launches"]
+
+
+def _dispatch_timing(name: str, preset: str, ds, vocab: int, batch: int,
+                     profile: bool) -> None:
+    """Outside deterministic mode: a K = 1 and a K = DISPATCH_K trainer
+    from the same weights, each with one epoch to warm up (the graphs are
+    captured there), then one epoch each in turns A B B A, every epoch
+    timed on the host clock to a synchronize(); with ``profile`` one chunk
+    and as many single micro-steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    from rag_snvbert_tpu_torch.train import step
+    from rag_snvbert_tpu_torch.train.trainer import _chunk_batches
+
+    arms = {kk: _dispatch_trainer(preset, ds, vocab, kk, batch, os.path.join(
+        DISPATCH_DIR, f"{name}_time_k{kk}")) for kk in (1, DISPATCH_K)}
+    for t in arms.values():
+        t._run_epoch(0, train=True)
+    times: dict[int, list[float]] = {1: [], DISPATCH_K: []}
+    epoch = 1
+    for kk in (1, DISPATCH_K, DISPATCH_K, 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = arms[kk]._run_epoch(epoch, train=True)["n_batches"]
+        torch.cuda.synchronize()
+        times[kk].append((time.perf_counter() - t) * 1e3 / n)
+        epoch += 1
+    print(f"dispatch timing {name} (batch {batch}, {n} micro-steps an epoch, "
+          f"host clock to a synchronize, turns K=1 K={DISPATCH_K} "
+          f"K={DISPATCH_K} K=1): ms a micro-step K = 1 "
+          f"{[round(x, 2) for x in times[1]]}, K = {DISPATCH_K} "
+          f"{[round(x, 2) for x in times[DISPATCH_K]]}; mean "
+          f"{statistics.mean(times[1]):.2f} -> "
+          f"{statistics.mean(times[DISPATCH_K]):.2f} ms "
+          f"({batch * 1e3 / statistics.mean(times[1]):.1f} -> "
+          f"{batch * 1e3 / statistics.mean(times[DISPATCH_K]):.1f} samples/s)"
+          f"; {card_line()}")
+    if profile:
+        t = arms[DISPATCH_K]
+        meta, chunk = next(_chunk_batches(t.train_ds.epoch_batches(
+            batch, 0, 0, packed=True), DISPATCH_K))
+        batches = t._put_batch(chunk)
+        ctx = t._window_ctx(t.train_ds, meta, 0, 0)
+        for rep in range(2):          # the first may capture a new key
+            torch.cuda.synchronize()
+            with trace(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                w = time.perf_counter()
+                t.runner.run(batches, ctx, t.step)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - w) * 1e3
+            t.step += DISPATCH_K
+        _print_profile(f"{name}: one chunk of {DISPATCH_K} micro-steps, one "
+                       f"replay", prof, wall)
+        one = arms[1]
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            w = time.perf_counter()
+            for j in range(DISPATCH_K):
+                step.train_step(one.model, one.optimizer,
+                                {k: v[j] for k, v in batches.items()}, ctx,
+                                one.step_cfg, step.step_generator(
+                                    0, one.step + j, one.device))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w) * 1e3
+        _print_profile(f"{name}: the same {DISPATCH_K} micro-steps one by "
+                       f"one", prof, wall)
+    del arms
+
+
+def phase_dispatch(profile: bool = False) -> dict[str, int]:
+    """``steps_per_dispatch`` (``train/dispatch.py``): each chunk of
+    micro-steps one CUDA graph replay, held bit for bit against single
+    steps under deterministic algorithms: V18 ``tpu_default`` (batch 24,
+    accumulation 2, 2 windows of 5 batches: chunks of 4 and 1 whose
+    accumulation phase moves from window to window) at K = 4, V17
+    ``v17_token_rag`` at K = 4 (batch 8: V17 peaks at 51.75 GB at batch
+    16), each remat mode, ``int8_matmuls`` and a one-rank NCCL mesh at
+    K = 2; a mesh over gloo raises.  Then K = 1 against K = 4 timed in turns.  Returns
+    the launches of the K > 1 runs (replays and warm-ups)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rag_snvbert_tpu_torch.parallel.mesh import (init_distributed,
+                                                     make_mesh)
+
+    shutil.rmtree(DISPATCH_DIR, ignore_errors=True)
+    total: dict[str, int] = {}
+    v18 = DISPATCH_KERNELS["tpu_default"]
+    bundle, ds = _train_bundle(120)
+    vocab = bundle.vocab.size
+    _add(total, _dispatch_pair("V18", "tpu_default", ds, vocab, DISPATCH_K,
+                               24, v18))
+    for mode in (True, "save_ffn", "attention", "save_most"):
+        _add(total, _dispatch_pair(f"V18 remat {mode}", "tpu_default", ds,
+                                   vocab, 2, 24, v18, remat=mode))
+    _add(total, _dispatch_pair("V18 int8_matmuls", "tpu_default", ds, vocab,
+                               2, 24, v18, int8_matmuls=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", rank=0, world_size=1,
+                         init_method=f"file://{tmp}/rendezvous")
+        try:
+            _add(total, _dispatch_pair("V18 one-rank NCCL mesh",
+                                       "tpu_default", ds, vocab, 2, 24, v18,
+                                       make_mesh(1, 1, 1)))
+        finally:
+            dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("gloo", rank=0, world_size=1,
+                         init_method=f"file://{tmp}/rendezvous")
+        try:
+            _dispatch_trainer("tpu_default", ds, vocab, 2, 24,
+                              os.path.join(DISPATCH_DIR, "gloo"),
+                              make_mesh(1, 1, 1))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        finally:
+            dist.destroy_process_group()
+    print(f"dispatch with a mesh over gloo on the card: {refused}")
+    check(refused is not None and "gloo" in refused,
+          "a gloo mesh at steps_per_dispatch > 1 was not refused")
+    _dispatch_timing("V18", "tpu_default", ds, vocab, 24, profile)
+    del bundle, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bundle, ds = _train_bundle(40)
+    vocab = bundle.vocab.size
+    _add(total, _dispatch_pair("V17", "v17_token_rag", ds, vocab, DISPATCH_K,
+                               8, DISPATCH_KERNELS["v17_token_rag"]))
+    _dispatch_timing("V17", "v17_token_rag", ds, vocab, 8, profile)
+    gc.collect()
+    return total
+
+
 DIST_DIR = "runs/chip_smoke_dist"
 
 
@@ -3554,6 +3813,7 @@ def main() -> None:
                         ("token_serving", phase_token_serving),
                         ("token_training", phase_token_training),
                         ("remat", phase_remat),
+                        ("dispatch", phase_dispatch),
                         ("index", lambda _profile: phase_index(gen)),
                         ("int8", phase_int8),
                         ("cli", phase_cli),

@@ -795,8 +795,10 @@ def build_parser() -> argparse.ArgumentParser:
                     default=2, help="host batch prefetch depth (0 = sync)")
     pt.add_argument("--steps-per-dispatch", dest="steps_per_dispatch",
                     type=int, default=1,
-                    help="accepted for the JAX command line; the port runs "
-                         "the steps one by one with the same semantics")
+                    help="training micro-steps per dispatch: chunks of up "
+                         "to K same-window batches, each one CUDA graph "
+                         "replay on the card, with the semantics of K "
+                         "single steps")
     pt.add_argument("--rng-impl", dest="rng_impl",
                     choices=["rbg", "threefry2x32"], default="rbg")
     pt.add_argument("--mask-schedule", dest="mask_schedule",

@@ -223,6 +223,50 @@ class Dropout(nn.Module):
                        self.rows, self.heads)
 
 
+class RecomputeDraws:
+    """Where ``checkpoint`` takes a recompute's dropout draws from while a
+    chunk of micro-steps is warmed up and captured as a CUDA graph
+    (``train/dispatch.py``).  A capture can neither read nor set a
+    generator's state, so the recompute cannot rewind the step's generator
+    as it does in eager mode.  Instead:
+
+    - in the eager warm-up (``replay`` None) each checkpointed segment's
+      entry records the offset of its micro-step's generator
+      (``offsets[j]``, in call order);
+    - under capture (``replay[j]``: one generator per segment, registered
+      with the graph) segment ``b`` of micro-step ``j`` recomputes from
+      ``replay[j][b]``, which the runner seeds with the step's seed and
+      sets to ``offsets[j][b]`` before every replay, so it draws the
+      forward's masks again.
+
+    ``gens[j]`` is micro-step ``j``'s generator."""
+
+    def __init__(self, gens: list, replay: list | None = None):
+        self.gens = gens
+        self.replay = replay
+        self.offsets: list[list[int]] = [[] for _ in gens]
+        self.used = [0] * len(gens)
+
+    def enter(self, gen: torch.Generator) -> torch.Generator | None:
+        """Called at a segment's forward entry with its generator."""
+        j = next(i for i, g in enumerate(self.gens) if g is gen)
+        if self.replay is None:
+            self.offsets[j].append(gen.get_offset())
+            return None
+        self.used[j] += 1
+        return self.replay[j][self.used[j] - 1]
+
+
+_recompute_draws: RecomputeDraws | None = None
+
+
+def set_recompute_draws(draws: RecomputeDraws | None) -> None:
+    """Install ``draws`` for the ``checkpoint`` calls that follow (None:
+    the eager rewind)."""
+    global _recompute_draws
+    _recompute_draws = draws
+
+
 def checkpoint(fn, module: nn.Module, *args):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
     backward pass keeps only the inputs and runs ``fn`` again to get the
@@ -230,15 +274,23 @@ def checkpoint(fn, module: nn.Module, *args):
     generator that ``module``'s ``Dropout``s hold is set to its state at
     this call for the recompute, then put back where it was (torch's
     ``preserve_rng_state`` covers only the global RNGs, which the model
-    never draws from).  So remat changes no bit of the loss or the
-    gradients, as the JAX ``nn.remat`` (which recomputes from the same
-    key) changes none.  With grad disabled it is a plain call."""
+    never draws from); while a CUDA graph is captured the recompute draws
+    from a generator set to that state instead (``RecomputeDraws``).
+    So remat changes no bit of the loss or the gradients, as the JAX
+    ``nn.remat`` (which recomputes from the same key) changes none.  With
+    grad disabled it is a plain call."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    gens = list({id(m.generator): m.generator for m in module.modules()
-                 if isinstance(m, Dropout)
-                 and m.generator is not None}.values())
-    entry = [g.get_state() for g in gens]
+    drops = [m for m in module.modules()
+             if isinstance(m, Dropout) and m.generator is not None]
+    gens = list({id(m.generator): m.generator for m in drops}.values())
+    replay = None
+    if _recompute_draws is not None and gens:
+        if len(gens) > 1:
+            raise ValueError("a captured remat segment needs one dropout "
+                             "generator for all its Dropouts")
+        replay = _recompute_draws.enter(gens[0])
+    entry = [] if replay is not None else [g.get_state() for g in gens]
     forward_done = False
 
     def run(*a):
@@ -246,6 +298,14 @@ def checkpoint(fn, module: nn.Module, *args):
         if not forward_done:
             forward_done = True
             return fn(*a)
+        if replay is not None:
+            for m in drops:
+                m.generator = replay
+            try:
+                return fn(*a)
+            finally:
+                for m in drops:
+                    m.generator = gens[0]
         left = [g.get_state() for g in gens]
         for g, s in zip(gens, entry):
             g.set_state(s)

@@ -3,7 +3,8 @@ splits, F1 assembly.
 
 Port of rag_snvbert_tpu/train/metrics.py (:23-125).  The counters are small
 int64 tensors computed on the device every step and summed there across
-the epoch; the trainer copies them to the host once per epoch.
+the epoch (in place, ``accumulate_``); the trainer copies them to the host
+once per epoch.
 
 Reference parity: cal_acc (optim_schedule.py:99-109), cal_pr (:167-204),
 rare/common split at MAF < 0.05 (pretrain_with_val_optimized.py:281-310),
@@ -90,6 +91,18 @@ def accumulate(a, b):
     if isinstance(a, dict):
         return {k: accumulate(a[k], b[k]) for k in a}
     return a + b
+
+
+def accumulate_(a: dict, b: dict) -> dict:
+    """Add counter tree ``b`` into ``a`` leaf by leaf, in place (the epoch
+    accumulator's tensors keep their storage, as a CUDA graph that adds
+    into them needs); returns ``a``."""
+    for k, v in a.items():
+        if isinstance(v, dict):
+            accumulate_(v, b[k])
+        else:
+            v.add_(b[k])
+    return a
 
 
 # ---- host-side assembly (runs once per epoch) ----

@@ -20,6 +20,14 @@ optax chain of ``make_optimizer`` (:32-40) step for step, in float32:
      clips the mean and updates once; the other calls leave the parameters
      as they are.  The mini-step counter and the running mean are part of
      the state.
+
+A step has a host side and a device side.  ``advance()`` moves the host
+counters (``count``, ``mini_step``, ``last_lr``) and returns what the
+device needs: how many micro-gradients the running mean already holds and,
+for an update, the float32 row ``(-lr, 1 - b1^t, 1 - b2^t)``.  ``apply()``
+does the device work from those and reads nothing back, so a CUDA graph can
+hold it with the row in a device buffer that the host fills before each
+replay (``train/dispatch.py``); ``step()`` is the two in turn.
 """
 
 from __future__ import annotations
@@ -119,24 +127,52 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def advance(self) -> tuple[int, np.ndarray | None]:
+        """The host side of the next ``step()``: move ``mini_step``,
+        ``count`` and ``last_lr`` as that call does and return ``(n,
+        row)``: ``n`` the micro-gradients the running mean holds before
+        this one (0 without accumulation), ``row`` the update's float32
+        ``(-lr, 1 - b1^count, 1 - b2^count)``, or None when the call only
+        accumulates."""
+        n = self.mini_step
+        if self.acc is not None and n < self.accum_steps - 1:
+            self.mini_step = n + 1
+            return n, None
+        self.last_lr = self.schedule(self.count)
+        self.count += 1
+        self.mini_step = 0
+        f32 = dict(dtype=torch.float32)
+        bc1 = (1 - torch.tensor(self.b1, **f32) ** self.count).item()
+        bc2 = (1 - torch.tensor(self.b2, **f32) ** self.count).item()
+        return n, np.array([-self.last_lr, bc1, bc2], dtype=np.float32)
+
     @torch.no_grad()
-    def step(self) -> bool:
+    def apply(self, n: int,
+              row: tuple[torch.Tensor, ...] | None) -> None:
+        """The device side of a step from ``advance()``'s ``(n, row)``,
+        with ``row`` as three 0-d float32 tensors on the parameters'
+        device: fold the gradients into the running mean of ``n``
+        micro-gradients, and with a row update the parameters (and clear
+        the mean).  Nothing is read back to the host."""
         grads = self.grads()
         if self.acc is not None:
-            n = self.mini_step
             # acc + (g - acc) / (n + 1), a float32 operation at a time
             delta = torch._foreach_sub(grads, self.acc)
             torch._foreach_div_(delta, self._scalar(n + 1))
             torch._foreach_add_(self.acc, delta)
-            if n < self.accum_steps - 1:
-                self.mini_step = n + 1
-                return False
+            if row is None:
+                return
             grads = self.acc
-        self._update(grads)
+        self._update(grads, row)
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
-            self.mini_step = 0
-        return True
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        n, row = self.advance()
+        self.apply(n, None if row is None else
+                   tuple(self._scalar(float(v)) for v in row))
+        return row is not None
 
     def _scalar(self, value: float) -> torch.Tensor:
         """``value`` as a 0-d float32 tensor on the parameters' device, made
@@ -144,27 +180,23 @@ class Optimizer:
         return torch.full((), value, dtype=torch.float32,
                           device=self.params[0].device)
 
-    def _update(self, grads: list[torch.Tensor]) -> None:
+    def _update(self, grads: list[torch.Tensor],
+                row: tuple[torch.Tensor, ...]) -> None:
         """One clipped Adam update, each step one float32 operation over
         every tensor (``torch._foreach_*``: a few launches an update where
         a loop over the tensors makes ~20 each), in optax's order:
         ``g / |g| * c``, ``(1 - b1) g + b1 mu``, ``(1 - b2) g^2 + b2 nu``,
         ``p - lr ((mu / bc1) / (sqrt(nu / bc2) + eps) + wd p)`` (the
-        decay term only when ``wd`` is set).  Every divisor here
-        and in the accumulation is a 0-d float32 tensor on the parameters'
-        device, so the division is a true one as on the CPU: CUDA divides
-        by a Python scalar as a product with its reciprocal, which rounds
-        differently.  The clip branch is chosen on the device: below the
-        limit the gradients are divided and multiplied by 1, which leaves
-        them as they are, so nothing is read back to the host."""
+        decay term only when ``wd`` is set), with ``row = (-lr, bc1,
+        bc2)``.  Every divisor here and in the accumulation is a 0-d
+        float32 tensor on the parameters' device, so the division is a
+        true one as on the CPU: CUDA divides by a Python scalar as a
+        product with its reciprocal, which rounds differently.  The clip
+        branch is chosen on the device: below the limit the gradients are
+        divided and multiplied by 1, which leaves them as they are, so
+        nothing is read back to the host."""
+        neg_lr, bc1, bc2 = row
         norm = self.grad_norm(grads)
-        self.last_lr = self.schedule(self.count)
-        self.count += 1
-        f32 = dict(dtype=torch.float32)
-        bc1 = self._scalar((1 - torch.tensor(self.b1, **f32)
-                            ** self.count).item())
-        bc2 = self._scalar((1 - torch.tensor(self.b2, **f32)
-                            ** self.count).item())
         below, one = norm < self.clip_norm, self._scalar(1.0)
         grads = torch._foreach_mul(
             torch._foreach_div(grads, torch.where(below, one, norm)),
@@ -180,7 +212,7 @@ class Optimizer:
         if self.weight_decay:
             torch._foreach_add_(u, torch._foreach_mul(self.params,
                                                       self.weight_decay))
-        torch._foreach_add_(self.params, torch._foreach_mul(u, -self.last_lr))
+        torch._foreach_add_(self.params, torch._foreach_mul(u, neg_lr))
 
     def state_dict(self) -> dict:
         def named(ts):

@@ -9,9 +9,11 @@ the search), the dual-haplotype forward, the 3/3/4 focal objective, the
 metric counters, backward, and ``Optimizer.step`` (which applies an update
 every ``accum_steps`` micro-steps).  Nothing here copies to the host.
 
-The JAX ``train_step_scan`` (:164-188) fuses K steps into one TPU dispatch;
-the port runs K ordinary steps instead (``TrainerConfig.steps_per_dispatch``
-has no effect).
+``train_steps`` is the counterpart of the JAX ``train_step_scan``
+(:164-188): K micro-steps over a stacked ``[K, ...]`` batch of one window,
+with the optimizer's host side taken out beforehand (``Optimizer.advance``)
+and nothing read back, so that ``train/dispatch.py`` captures a chunk as
+one CUDA graph (``TrainerConfig.steps_per_dispatch``).
 
 Data parallelism (``data_group``): each rank runs its rows of the global
 batch; the loss is a masked sum, so the gradients, the loss terms and the
@@ -25,6 +27,7 @@ ranks) compute the same loss.  A ``ShardedWindowRefContext`` dispatches to
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -113,15 +116,16 @@ def _forward(model, batch: dict, ctx: Context, cfg: StepConfig,
 
 
 def _accumulate(acc: dict | None, stats: dict) -> dict | None:
-    """Fold a step's counters and loss totals into the epoch accumulator
-    ``{"counters": ..., "totals": ...}`` (device tensors)."""
+    """Add a step's counters and loss totals into the epoch accumulator
+    ``{"counters": ..., "totals": ...}`` (device tensors), in place;
+    returns it."""
     if acc is None:
         return None
-    totals = {k: (v + stats[k] if k in stats else v)
-              for k, v in acc["totals"].items()}
-    return {"counters": metrics.accumulate(acc["counters"],
-                                           stats["counters"]),
-            "totals": totals}
+    metrics.accumulate_(acc["counters"], stats["counters"])
+    for k, v in acc["totals"].items():
+        if k in stats:
+            v.add_(stats[k])
+    return acc
 
 
 def _flat_sum(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
@@ -170,28 +174,26 @@ def sum_gradients(optimizer: Optimizer, group) -> None:
         p.grad = g.to(p.dtype)
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The dropout seed of micro-step ``step`` of a run seeded ``seed``: a
+    pure function of the two, so a resumed run draws what an uninterrupted
+    one would (the JAX step folds ``state.step`` into its key,
+    step.py:149)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return int(state[0])
+
+
 def step_generator(seed: int, step: int,
                    device: torch.device) -> torch.Generator:
-    """The dropout generator of micro-step ``step`` of a run seeded
-    ``seed``: a pure function of the two, so a resumed run draws what an
-    uninterrupted one would (the JAX step folds ``state.step`` into its
-    key, step.py:149)."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+    """The dropout generator of micro-step ``step`` (``step_seed``)."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
 
 
-def train_step(model, optimizer: Optimizer, batch: dict,
-               ctx: Context, cfg: StepConfig,
-               generator: torch.Generator | None = None,
-               acc: dict | None = None, data_group=None,
-               rows: BatchRows | None = None):
-    """One micro-step in train mode with dropout drawn from ``generator``
-    (needed when the model has dropout).  Returns the step's device stats
-    ``{"loss", "hap_loss", "gt_loss", "counters", "grad_norm"}`` (the norm
-    of this micro-step's raw gradient), or ``(stats, acc')`` when given the
-    epoch accumulator ``acc``.  ``data_group``: sum the gradients and stats
-    over the data ranks; ``rows``: this rank's rows of the global batch,
-    for dropout."""
+def _micro_step(model, optimizer: Optimizer, batch: dict, ctx: Context,
+                cfg: StepConfig, generator, data_group, rows,
+                update) -> dict:
+    """Forward, backward, the data group's sums, the raw gradient's norm,
+    ``update()`` (the optimizer's step) and the gradients cleared."""
     model.train()
     set_dropout_generator(model, generator, rows)
     try:
@@ -204,14 +206,55 @@ def train_step(model, optimizer: Optimizer, batch: dict,
             sum_gradients(optimizer, data_group)
             loss, aux, counters = _sum_stats(loss, aux, counters, data_group)
         grad_norm = optimizer.grad_norm()
-    optimizer.step()
+    update()
     optimizer.zero_grad()
-    stats = {"loss": loss.detach(),
-             **{k: v.detach() for k, v in aux.items()},
-             "counters": counters, "grad_norm": grad_norm}
+    return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()},
+            "counters": counters, "grad_norm": grad_norm}
+
+
+def train_step(model, optimizer: Optimizer, batch: dict,
+               ctx: Context, cfg: StepConfig,
+               generator: torch.Generator | None = None,
+               acc: dict | None = None, data_group=None,
+               rows: BatchRows | None = None):
+    """One micro-step in train mode with dropout drawn from ``generator``
+    (needed when the model has dropout).  Returns the step's device stats
+    ``{"loss", "hap_loss", "gt_loss", "counters", "grad_norm"}`` (the norm
+    of this micro-step's raw gradient), or ``(stats, acc)`` when given the
+    epoch accumulator ``acc`` (added into in place).  ``data_group``: sum
+    the gradients and stats over the data ranks; ``rows``: this rank's rows
+    of the global batch, for dropout."""
+    stats = _micro_step(model, optimizer, batch, ctx, cfg, generator,
+                        data_group, rows, optimizer.step)
     if acc is None:
         return stats
     return stats, _accumulate(acc, stats)
+
+
+def train_steps(model, optimizer: Optimizer, batches: dict, ctx: Context,
+                cfg: StepConfig, generators: list, plan: list,
+                sched: torch.Tensor, acc: dict, out: dict,
+                data_group=None, rows: BatchRows | None = None) -> None:
+    """The micro-steps of one chunk: ``batches`` leaves are stacked
+    ``[K, ...]`` (consecutive batches of one window) and micro-step ``j``
+    runs ``train_step``'s body on ``batches[k][j]`` with dropout from
+    ``generators[j]``.  ``plan[j]`` is the ``(n, u)`` of its optimizer
+    step: ``n`` the micro-gradients the running mean holds before it and
+    ``u`` the row of ``sched`` (``[U, 3]`` float32, ``Optimizer.advance``'s
+    rows) it updates with, or None when it only accumulates.  The epoch
+    accumulator ``acc`` is added into and ``out["loss"]``,
+    ``out["grad_norm"]`` (``[K]`` float32) are written in place, and
+    nothing is read back to the host: the body a CUDA graph holds
+    (``train/dispatch.py``; JAX ``train_step_scan``)."""
+    for j, (n, u) in enumerate(plan):
+        row = None if u is None else tuple(sched[u].unbind())
+        stats = _micro_step(
+            model, optimizer, {k: v[j] for k, v in batches.items()}, ctx,
+            cfg, generators[j], data_group, rows,
+            functools.partial(optimizer.apply, n, row))
+        _accumulate(acc, stats)
+        out["loss"][j].copy_(stats["loss"])
+        out["grad_norm"][j].copy_(stats["grad_norm"])
 
 
 @torch.no_grad()

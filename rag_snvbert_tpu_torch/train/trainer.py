@@ -22,7 +22,14 @@ Port of rag_snvbert_tpu/train/trainer.py (:41-645).  Reference parity
   - ``init_params_from``: a warm start from another run's or a converted
     reference checkpoint's weights, with a fresh optimizer;
   - ``profile_dir``: a ``torch.profiler`` Chrome trace of ``profile_steps``
-    steady micro-steps of the first epoch trained (JAX trainer.py:418-433).
+    steady micro-steps of the first epoch trained (JAX trainer.py:418-433);
+  - ``steps_per_dispatch`` K > 1 (JAX trainer.py:150-171, 362-400):
+    consecutive same-window training batches go in chunks of up to K
+    (``_chunk_batches``), each chunk one dispatch (``train/dispatch.py``:
+    one CUDA graph replay on the card) with the semantics of K single
+    steps; ``step``, ``n_batches``, the step marks, ``log_freq`` and the
+    profiler window advance by the chunk, as in JAX.  Validation stays
+    per step.
 
 The trainer runs wherever the model's parameters are (``build_model`` puts
 them on the card unless given ``device="cpu"``).  Batches are assembled on
@@ -69,6 +76,7 @@ from ..utils.timing import start_trace, stop_trace
 from . import metrics as metrics_lib
 from .retrieval import (build_token_window_ctx, check_int8_vocab,
                         encode_window_refs)
+from .dispatch import ChunkRunner, epoch_accumulator
 from .schedule import make_optimizer
 from .sharded_retrieval import encode_window_refs_sharded
 from .step import StepConfig, eval_step, step_generator, train_step
@@ -77,10 +85,11 @@ from .step import StepConfig, eval_step, step_generator, train_step
 @dataclasses.dataclass
 class TrainerConfig:
     """The JAX package's fields, so one config means one run in both.
-    Fields with no effect in the port: ``rng_impl`` (dropout draws come
-    from a torch generator per step), ``steps_per_dispatch`` (a TPU
-    dispatch device: the port runs the steps one by one, with the same
-    semantics)."""
+    ``rng_impl`` has no effect in the port (dropout draws come from a torch
+    generator per step).  ``steps_per_dispatch`` K > 1 runs each chunk of
+    up to K same-window training micro-steps as one dispatch: one CUDA
+    graph replay on the card (``train/dispatch.py``), with the semantics
+    of K single steps."""
 
     epochs: int = 20
     batch_size: int = 24
@@ -126,7 +135,9 @@ class TrainerConfig:
     mask_end: float = 0.8
     # Record a host timestamp after every step into Trainer.step_marks.
     record_step_times: bool = False
-    steps_per_dispatch: int = 1        # no effect here
+    # Training micro-steps a dispatch: chunks of up to K same-window
+    # batches, each one CUDA graph replay on the card (train/dispatch.py).
+    steps_per_dispatch: int = 1
     # Write each checkpoint on a background thread, overlapping the next
     # epoch's steps (Trainer.save_checkpoint); False writes it in place.
     async_checkpoints: bool = True
@@ -157,6 +168,32 @@ class EarlyStopping:
             return True, False
         self.bad_epochs += 1
         return False, self.bad_epochs >= self.patience
+
+
+def _chunk_batches(it, k: int):
+    """Group consecutive same-window (meta, batch) pairs into stacked
+    ``[n, ...]`` chunks of at most ``k`` for one dispatch each (JAX
+    trainer.py:150-171).  Chunks never span a window boundary (a chunk
+    shares one retrieval context); a window's trailing chunk may be
+    shorter (one more graph).  Packed batches keep one ``feat_rows`` shape
+    across a cohort, so they stack."""
+    pending: list = []
+    cur_meta = None
+
+    def flush():
+        stacked = {key: np.stack([b[key] for b in pending])
+                   for key in pending[0]}
+        return cur_meta, stacked
+
+    for meta, b in it:
+        if pending and (meta.window_idx != cur_meta.window_idx
+                        or len(pending) == k):
+            yield flush()
+            pending = []
+        cur_meta = meta
+        pending.append(b)
+    if pending:
+        yield flush()
 
 
 def _with_lookahead(it):
@@ -224,6 +261,9 @@ class Trainer:
                  train_sample_ids=None, val_sample_ids=None):
         if cfg.rag_mode not in ("embedding", "token", "none"):
             raise ValueError(f"unknown rag_mode {cfg.rag_mode!r}")
+        if cfg.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got "
+                             f"{cfg.steps_per_dispatch}")
         self.mesh = mesh
         self.n_data = axis_size(mesh, DATA_AXIS)
         self.data_rank = axis_rank(mesh, DATA_AXIS)
@@ -265,6 +305,10 @@ class Trainer:
         if axis_size(mesh, MODEL_AXIS) > 1:
             self.optimizer.set_tensor_parallel(axis_group(mesh, MODEL_AXIS),
                                                tp.sharded_flags(model))
+        self.runner = (ChunkRunner(self.model, self.optimizer, self.step_cfg,
+                                   cfg.seed, self.data_group,
+                                   self._batch_rows(cfg.batch_size), mesh)
+                       if cfg.steps_per_dispatch > 1 else None)
         self._saver: threading.Thread | None = None  # see save_checkpoint
         self._save_error: BaseException | None = None
         os.makedirs(cfg.output_dir, exist_ok=True)
@@ -280,6 +324,15 @@ class Trainer:
         return {k: torch.from_numpy(v).pin_memory().to(self.device,
                                                         non_blocking=True)
                 for k, v in batch.items()}
+
+    def _batch_rows(self, bs: int) -> BatchRows | None:
+        """This data rank's rows of a global batch of ``bs`` (dropout)."""
+        if self.mesh is None:
+            return None
+        per = bs // self.n_data
+        return BatchRows.stacked(self.data_rank * per, per, bs,
+                                 self.cfg.rag_k,
+                                 token_rag=self.cfg.rag_mode == "token")
 
     # ---- retrieval context (the per-window index, derived state) ----
 
@@ -328,11 +381,11 @@ class Trainer:
                 schedule=cfg.mask_schedule)
         seed = epoch if train else cfg.val_seed
         bs = cfg.batch_size if train else cfg.val_batch_size
-        # Counters and loss totals stay on the device across the epoch.
-        zero = lambda: torch.zeros((), device=self.device)  # noqa: E731
-        acc = {"counters": metrics_lib.zeros_like_counters(self.device),
-               "totals": {"loss": zero(), "hap_loss": zero(),
-                          "gt_loss": zero()}}
+        k_chunk = cfg.steps_per_dispatch if train else 1
+        # Counters and loss totals stay on the device across the epoch
+        # (the chunk runner's own accumulator: its graphs add into it).
+        acc = (self.runner.zero_acc() if k_chunk > 1
+               else epoch_accumulator(self.device))
         n_batches = 0
         t0 = time.time()
         self.step_marks = [] if cfg.record_step_times else None
@@ -348,10 +401,9 @@ class Trainer:
                                       seed=seed, sample_ids=sample_ids,
                                       host_id=self.data_rank,
                                       n_hosts=self.n_data, packed=True)
-        per = bs // self.n_data
-        rows = (None if self.mesh is None else BatchRows.stacked(
-            self.data_rank * per, per, bs, cfg.rag_k,
-            token_rag=cfg.rag_mode == "token"))
+        if k_chunk > 1:
+            batch_iter = _chunk_batches(batch_iter, k_chunk)
+        rows = self._batch_rows(bs)
         to_device = lambda mb: (mb[0], self._put_batch(mb[1]))  # noqa: E731
         if cfg.prefetch_batches > 0:
             batch_iter = prefetch_iter(batch_iter, size=cfg.prefetch_batches,
@@ -370,16 +422,23 @@ class Trainer:
                 prefetched.clear()
                 prefetched[next_meta.window_idx] = self._window_ctx(
                     ds, next_meta, level, seed)
-            if train:
+            if k_chunk > 1:
+                out = self.runner.run(batch, ctx, self.step)
+                n = out["loss"].shape[0]
+                stats = {"loss": out["loss"][n - 1]}
+                self.step += n
+                n_batches += n
+            elif train:
                 gen = step_generator(cfg.seed, self.step, self.device)
                 stats, acc = train_step(self.model, self.optimizer, batch,
                                         ctx, self.step_cfg, gen, acc,
                                         self.data_group, rows)
                 self.step += 1
+                n_batches += 1
             else:
                 stats, acc = eval_step(self.model, batch, ctx,
                                        self.step_cfg, acc, self.data_group)
-            n_batches += 1
+                n_batches += 1
             if self.step_marks is not None:
                 self.step_marks.append(time.time())
             if want_prof and prof is None:
