@@ -65,6 +65,12 @@ just before it and read just after:
   - ``tools/run_convergence.py`` at ``tpu_default`` on a four-window
     calibrated panel under ``runs/chip_smoke_convergence/``: an epoch with
     ``--profile`` and one more through ``--resume``, the trace summarized;
+  - the scale-out path (``phase_distributed``): a one-rank NCCL world,
+    then gloo worlds whose ranks share the card: dp2 x idx2 training, tp3
+    serving (a head a rank), tp2 serving and training of ``tpu_default``
+    and of its ``int8_matmuls`` twin (each rank's 192 columns split a
+    head: the attention kernels run on the two whole heads a rank
+    touches), dp2 imputation and the genotype index over two shards;
 and checks the answers and the launch counts of each path.  V18 serving
 also writes window 0's index and serves that window from it.  It prints
 one JSON line of per-kernel numbers, the card's name and power limit, and
@@ -3268,6 +3274,88 @@ def _dist_serve_rank(rank: int, targets: list) -> dict:
     return out
 
 
+TP2_TRAIN_LAYERS = 4      # the tp2 world's fits: tpu_default cut in depth
+
+
+def _tp2_configs():
+    """``tpu_default`` and its ``int8_matmuls=True`` twin: to serve, and
+    cut to ``TP2_TRAIN_LAYERS`` layers to train."""
+    from rag_snvbert_tpu_torch.config import PRESETS
+
+    cfg = PRESETS["tpu_default"]
+    int8 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, int8_matmuls=True))
+    return {name: (c, dataclasses.replace(c, model=dataclasses.replace(
+        c.model, n_layers=TP2_TRAIN_LAYERS)))
+        for name, c in (("bf16", cfg), ("int8", int8))}
+
+
+def _dist_tp2_rank(rank: int, target, singles: dict, out_dir: str) -> dict:
+    """One rank of the tp2 world, whose 192 columns a rank split one of
+    ``tpu_default``'s three heads of 128 (rank 0 runs heads 0-1, rank 1
+    heads 1-2): the serving bundle's first target through
+    ImputationService (rank 0 the front end), bf16 and ``int8_matmuls``;
+    then Trainer.fit of each, cut in depth, held to its single-process
+    fit in ``singles``, and the bf16 fit with the split head's gradient
+    sum skipped (the control).  Launch counts per part."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import build_model
+    from rag_snvbert_tpu_torch.infer.serve import ImputationService
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.parallel.mesh import make_mesh
+    from rag_snvbert_tpu_torch.tools.mesh_check import (
+        compare_fits, fit, make_trainer, split_head_control)
+
+    mesh = make_mesh(1, 1, 2)
+    bundle = make_bundle(n_train_samples=64, n_ref_samples=1004,
+                         n_sites=3 * 1020, n_windows=3, seed=17)
+    out: dict = {}
+    for name, (serve_cfg, train_cfg) in _tp2_configs().items():
+        t = time.perf_counter()
+        svc = ImputationService.create(build_model(
+            serve_cfg, bundle.vocab.size, seed=0), bundle.ref, bundle.freq,
+            batch_size=32, mesh=mesh)
+        att = svc.imputer.model.bert.encoder.block_0.attention
+        part = {"heads": (att.local_heads, att.head_split)}
+        ops.reset_launches()
+        if rank == 0:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = svc.handle_target(target)
+            torch.cuda.synchronize()
+            part["sec"] = time.perf_counter() - t
+            part["result"] = {f: getattr(res, f) for f in
+                              ("hap1_prob", "hap2_prob", "gt_prob")}
+            svc.release()
+        else:
+            part["followed"] = svc.follow()
+        part["launches"] = ops.launch_counts()
+        part["wall_s"] = time.perf_counter() - t
+        out["serve", name] = part
+        del svc, att
+        torch.cuda.empty_cache()
+        runs = [(name, False)] + ([("control", True)] if name == "bf16"
+                                  else [])
+        for label, control in runs:
+            t = time.perf_counter()
+            trainer = make_trainer(mesh, os.path.join(out_dir, label),
+                                   train_cfg)[0]
+            ops.reset_launches()
+            with split_head_control() if control else \
+                    contextlib.nullcontext():
+                got = fit(trainer)
+            out["fit", label] = {
+                "launches": ops.launch_counts(), "loss": got["loss"],
+                "step_ms": got["step_ms"], "wall_s": time.perf_counter() - t,
+                "cmp": compare_fits(got, singles[name])}
+            del trainer, got
+            torch.cuda.empty_cache()
+    out["launches"] = {}
+    for part in list(out.values()):
+        _add(out["launches"], part.get("launches", {}))
+    return out
+
+
 def _dist_index_rank(rank: int, target) -> dict:
     """One rank of the two-rank world: dp2 imputation of the serving
     bundle, then the genotype index sharded over both ranks in four
@@ -3349,11 +3437,116 @@ def _add(total: dict, counts: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
+def _add_tp2(total: dict, target, ref, ref_sec: float, band) -> dict:
+    """The tp2 world (``_dist_tp2_rank``) against single-process runs made
+    here: the int8 service's warm request and the two fits cut in depth
+    (the bf16 service's, ``ref``, comes from the tp3 part).  Adds the
+    ranks' launches to ``total`` and returns it."""
+    from rag_snvbert_tpu_torch.config import build_model
+    from rag_snvbert_tpu_torch.infer.serve import ImputationService
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.tools.mesh_check import (
+        TP_DELTA_TOL, TP_NORM_TOL, fit, fit_failures, make_trainer)
+
+    t0 = time.perf_counter()
+    cfgs = _tp2_configs()
+    bundle = make_bundle(n_train_samples=64, n_ref_samples=1004,
+                         n_sites=3 * 1020, n_windows=3, seed=17)
+    svc = ImputationService.create(build_model(
+        cfgs["int8"][0], bundle.vocab.size, seed=0), bundle.ref,
+        bundle.freq, batch_size=32)
+    svc.handle_target(target)          # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    refs = {"bf16": (ref, ref_sec), "int8": (svc.handle_target(target),
+                                              None)}
+    torch.cuda.synchronize()
+    refs["int8"] = (refs["int8"][0], time.perf_counter() - t)
+    del svc
+    torch.cuda.empty_cache()
+    singles = {name: fit(make_trainer(None, os.path.join(
+        DIST_DIR, f"tp2_single_{name}"), train_cfg)[0])
+        for name, (_, train_cfg) in cfgs.items()}
+    print(f"tp2 single-process references: {time.perf_counter() - t0:.1f} "
+          "s")
+    runs = _spawn(_dist_tp2_rank, 2, (target, singles,
+                                      os.path.join(DIST_DIR, "tp2")),
+                  "tp2 serving and training (split heads)")
+    serve_layers = cfgs["bf16"][0].model.n_layers
+    batches = 3 * 2
+    micro = 4
+    for rank, r in enumerate(runs):
+        _add(total, r["launches"])
+        want_split = (0, 0, 192) if rank == 0 else (1, 64, 192)
+        for name in cfgs:
+            part = r["serve", name]
+            want = {"attention": serve_layers * batches, "attention_bwd": 0,
+                    "l2_topk": batches, "l2_topk_rf": 0, "l2_topk_float": 0}
+            check(part["heads"] == (2, want_split)
+                  and part["launches"] == want,
+                  f"tp2 {name} serving rank {rank}: heads "
+                  f"{part['heads']}, launches {part['launches']}, want "
+                  f"(2, {want_split}) and {want}")
+            check(part.get("followed", 1) == 1,
+                  f"tp2 {name} serving rank {rank} did not follow the "
+                  f"request")
+        for label in ("bf16", "control", "int8"):
+            part = r["fit", label]
+            want = {"attention": TP2_TRAIN_LAYERS * micro,
+                    "attention_bwd": TP2_TRAIN_LAYERS * micro,
+                    "l2_topk": micro, "l2_topk_rf": 0, "l2_topk_float": 0}
+            check(part["launches"] == want,
+                  f"tp2 {label} fit rank {rank} launches "
+                  f"{part['launches']}, want {want}")
+            bad = fit_failures(part["cmp"], model_axis=True)
+            if label == "control":
+                check(bool(bad), f"the control without the split head's "
+                      f"gradient sum passes the tp2 checks: {part['cmp']}")
+            else:
+                check(not bad, f"tp2 {label} fit rank {rank}: {bad}")
+    med = statistics.median
+    print("tp2 world parts, wall s on rank 0 (set-up included): "
+          + ", ".join(f"{' '.join(k)} {v['wall_s']:.1f}"
+                      for k, v in runs[0].items() if k != "launches"))
+    for name in cfgs:
+        mean_d, max_d = band(runs[0]["serve", name]["result"],
+                             refs[name][0])
+        print(f"tp2 {name} serving (tpu_default, 192 columns a rank: "
+              f"heads 0-1 and 1-2, the attention kernel on 2 whole heads a "
+              f"rank): request {runs[0]['serve', name]['sec']:.3f} s "
+              f"(first, gloo staging the gathers and sums through the "
+              f"host) vs {refs[name][1]:.3f} s single-process (warm); "
+              f"mean/max |dp| over imputed genotypes {mean_d:.3e}/"
+              f"{max_d:.3e} (tol {PROB_MEAN_TOL}/{PROB_MAX_TOL}); "
+              f"{card_line()}")
+        check(mean_d <= PROB_MEAN_TOL and max_d <= PROB_MAX_TOL,
+              f"tp2 {name} serving left the band of the single-process "
+              "service")
+    for label, name in (("bf16", "bf16"), ("control", "bf16"),
+                        ("int8", "int8")):
+        c = [r["fit", label]["cmp"] for r in runs]
+        print(f"tp2 {label} fit ({TP2_TRAIN_LAYERS}-layer tpu_default"
+              f"{', int8_matmuls' if name == 'int8' else ''}, 4 micro-steps"
+              f"{', split head gradient sum skipped: must fail' if label == 'control' else ''}): "
+              f"worst rank loss rel {max(x['loss_rel'] for x in c):.2e}, "
+              f"params rel {max(x['param_rel'] for x in c):.2e}, gradient "
+              f"norm rel {max(x['norm_rel'] for x in c):.2e} (tol "
+              f"{TP_NORM_TOL}), parameter change L2 rel "
+              f"{max(x['delta_rel'] for x in c):.2e} (tol {TP_DELTA_TOL}); "
+              f"micro-step median "
+              f"{[round(med(r['fit', label]['step_ms']), 1) for r in runs]}"
+              f" ms per rank (2 ranks time-sharing the card) vs "
+              f"{med(singles[name]['step_ms']):.1f} ms single-process; "
+              f"{card_line()}")
+    return total
+
+
 def phase_distributed(profile: bool = False) -> dict[str, int]:
     """The scale-out path (parallel/, index/sharded.py,
     train/sharded_retrieval.py): a one-rank NCCL world against the runs
     without a mesh, then gloo worlds of ranks sharing the card: dp2 x idx2
-    training, tp3 serving, dp2 imputation and the two-shard genotype
+    training, tp3 serving, tp2 serving and training with split heads
+    (bf16 and ``int8_matmuls``), dp2 imputation and the two-shard genotype
     index.  Returns the launches of every rank's mesh run summed (the
     single-process references are not counted)."""
     import tempfile
@@ -3554,6 +3747,8 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
           f"{PROB_MEAN_TOL}/{PROB_MAX_TOL})")
     check(all(a <= PROB_MEAN_TOL and b <= PROB_MAX_TOL for a, b in bands),
           "tp3 serving left the bf16 band of the single-process service")
+    del runs
+    total = _add_tp2(total, targets[0], refs[0], ref_sec[0], band)
 
     # 2c + 3. dp2 imputation, then the genotype index over two shards
     b, n, d = FLOAT_INDEX

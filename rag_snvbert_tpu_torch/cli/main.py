@@ -780,7 +780,8 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--tensor-parallel", dest="tensor_parallel", type=int,
                     default=1, help="ranks on the mesh model axis "
                     "(Megatron encoder tensor parallelism; must divide "
-                    "the attention heads)")
+                    "dims and the FFN width; a rank whose columns split "
+                    "a head gathers that head's columns)")
     pt.add_argument("--shard-ctx", dest="shard_ctx",
                     choices=["auto", "on", "off"], default="auto",
                     help="shard the window context over the index axis "

@@ -34,6 +34,12 @@ class Dense(nn.Linear):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
 
+    # Under tensor parallelism (``parallel/tp.py``) a layer whose products
+    # need the group inside them (``ops.quant.Int8Dense``) holds
+    # ``("column" | "row", group)`` here and runs its collectives itself;
+    # a ``Dense`` leaves them to ``column_input`` and ``row_parallel``.
+    tp = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _out_dtype(x, self.weight, self.compute_dtype)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
@@ -102,13 +108,25 @@ class LayerNorm(nn.Module):
         return y.to(_out_dtype(x, self.weight, self.compute_dtype))
 
 
+def column_input(x: torch.Tensor, layer: Dense, group) -> torch.Tensor:
+    """``x`` as the replicated input of the column-parallel ``layer``: with
+    a tensor-parallel ``group``, Megatron's ``copy_to_group`` (x's gradient
+    summed over the group), unless the layer sums it itself
+    (``layer.tp``)."""
+    if group is None or layer.tp is not None:
+        return x
+    from ..parallel.comm import copy_to_group
+
+    return copy_to_group(x, group)
+
+
 def row_parallel(layer: Dense, x: torch.Tensor, group) -> torch.Tensor:
     """``layer(x)``; with a tensor-parallel ``group``, ``layer`` holds the
     rows of the contraction that match ``x``'s slice: the partial products
     are summed over the group in the layer's compute dtype (as Megatron
     sums them: bf16 halves the bytes of the reduction), then the bias is
-    added."""
-    if group is None:
+    added.  A layer with ``tp`` set sums inside its own product."""
+    if group is None or layer.tp is not None:
         return layer(x)
     from ..parallel.comm import reduce_from_group
 

@@ -11,9 +11,15 @@ CUDA kernel masks the ragged tail itself).  ``quant`` (the model's
 ``int8_matmuls``) builds every projection as ``ops.quant``'s ``Int8Dense``
 (:191-192, :249-250).  ``tp_group`` (set by ``parallel/tp.py``'s
 ``shard_model``) makes attention and the FFN Megatron-parallel: each rank
-holds whole heads of query/key/value (or ``qkv``) and a slice of ``w_1``,
-and the row-parallel ``output`` and ``w_2`` products are summed over the
-group.
+holds a column slice of query/key/value (or of each third of ``qkv``) and
+of ``w_1``, and the row-parallel ``output`` and ``w_2`` products are
+summed over the group.  Where the ranks hold whole heads, a rank runs
+attention on its own.  Where a rank's columns split a head
+(``head_split``: ``tpu_default``'s 3 heads of 128 at tp2 or tp4), it
+gathers the q, k and v columns of the group, runs attention on the whole
+heads its columns touch, and keeps its own columns of the context; the
+gather's backward sums each head's gradient over the ranks that ran it.
+GSPMD computes the same from the JAX package's column placement.
 
 ``remat`` is activation checkpointing with the JAX meanings (``Encoder``,
 :336-349, :401-413), through ``layers.checkpoint``, which recomputes with
@@ -35,7 +41,7 @@ stores for the backward pass:
 
 With grad disabled (serving, validation) every mode is a plain call.
 Under tensor parallelism a recompute repeats the forward's all-reduces
-inside the backward pass, on every rank alike.
+(and a split head's gather) inside the backward pass, on every rank alike.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
-from .layers import Dropout, LayerNorm, checkpoint, row_parallel
+from .layers import (Dropout, LayerNorm, checkpoint, column_input,
+                     row_parallel)
 
 REMAT_MODES = (False, True, "save_ffn", "attention", "save_most")
 
@@ -85,7 +92,11 @@ class MultiHeadAttention(nn.Module):
             self.value = Dense(dims, dims, dtype)
         self.output = Dense(dims, dims, dtype)
         self.tp_group = None
-        self.local_heads = heads       # this rank's heads (tensor parallel)
+        # heads this rank runs attention on (tensor parallel), and where its
+        # columns split a head: (first of those heads, own columns' offset
+        # in them, own columns)
+        self.local_heads = heads
+        self.head_split: tuple[int, int, int] | None = None
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -98,11 +109,16 @@ class MultiHeadAttention(nn.Module):
         b, l, _ = x.shape
         hd = self.dims // self.heads
         heads = self.local_heads
-        if self.tp_group is not None:
-            from ..parallel.comm import copy_to_group
-
-            x = copy_to_group(x, self.tp_group)
-        if self.fused_qkv:
+        x = column_input(x, self.qkv if self.fused_qkv else self.query,
+                         self.tp_group)
+        if self.head_split is not None:
+            if self.fused_qkv:
+                qkv = self.qkv(x).reshape(b, l, 3, -1)
+            else:
+                qkv = torch.stack([self.query(x), self.key(x),
+                                   self.value(x)], 2)
+            q, k, v = self._gather_heads(qkv, hd)
+        elif self.fused_qkv:
             qkv = self.qkv(x).reshape(b, l, 3, heads, hd)
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         else:
@@ -119,7 +135,22 @@ class MultiHeadAttention(nn.Module):
         else:
             out = self._core(q, k, v, mask)
         out = out.transpose(1, 2).reshape(b, l, heads * hd)
+        if self.head_split is not None:
+            _, off, cols = self.head_split
+            out = out[..., off:off + cols]
         return row_parallel(self.output, out, self.tp_group)
+
+    def _gather_heads(self, qkv: torch.Tensor, hd: int):
+        """``q, k, v`` ``[B, local heads, L, hd]`` of the whole heads this
+        rank's columns touch, from every rank's ``[B, L, 3, columns]``."""
+        from ..parallel.comm import gather_from_group
+
+        b, l = qkv.shape[:2]
+        h0 = self.head_split[0]
+        full = gather_from_group(qkv, self.tp_group)
+        mine = full[..., h0 * hd:(h0 + self.local_heads) * hd]
+        mine = mine.reshape(b, l, 3, self.local_heads, hd)
+        return (mine[:, :, i].transpose(1, 2) for i in range(3))
 
     def _core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | None) -> torch.Tensor:
@@ -155,10 +186,7 @@ class FeedForward(nn.Module):
         return self.tail(self.hidden(x))
 
     def hidden(self, x: torch.Tensor) -> torch.Tensor:
-        if self.tp_group is not None:
-            from ..parallel.comm import copy_to_group
-
-            x = copy_to_group(x, self.tp_group)
+        x = column_input(x, self.w_1, self.tp_group)
         return F.leaky_relu(self.w_1(x), 0.1)
 
     def tail(self, h: torch.Tensor) -> torch.Tensor:

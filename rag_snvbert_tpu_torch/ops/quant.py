@@ -24,6 +24,17 @@ scales.  ``Int8Dense`` has ``models.layers.Dense``'s parameters (``weight
 ``rag_snvbert_tpu``'s ``Int8Dense`` unchanged (``interop``); its
 ``calls`` count every forward, so a run can show that a path went
 through it.
+
+Tensor parallelism (``parallel/tp.py`` sets ``Int8Dense.tp``) computes
+what GSPMD makes of the JAX products: a scale taken along a split axis is
+the max over the group, and an integer product whose contraction is split
+is summed over the group in int32 before the rescale.  A column-parallel
+layer (``query``/``key``/``value``/``qkv``, ``w_1``: the weight's rows
+split) computes its forward locally and sums its input gradient itself
+(in int32 with ``"fwd_bwd"``, in the compute dtype with ``"fwd"``); a
+row-parallel one (``output``, ``w_2``: the contraction split) sums its
+forward before the rescale and the bias.  So each layer's result is the
+one-process layer's, bit for bit, with ``"fwd_bwd"``.
 """
 
 from __future__ import annotations
@@ -32,16 +43,21 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import Dense, _out_dtype
+from ..parallel.comm import all_reduce, all_reduce_max
 
 
-def _quant(t: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _quant(t: torch.Tensor, axis: int, group=None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 along ``axis`` (the contraction axis of the coming
     product): ``(q int8, scale float32 with keepdim)``.  The division is in
-    ``t``'s dtype and rounds half to even, as ``jnp.round``."""
-    amax = t.abs().amax(dim=axis, keepdim=True)
+    ``t``'s dtype and rounds half to even, as ``jnp.round``.  ``group``:
+    ``axis`` is split over it, and the amax is the group's."""
+    amax = t.abs().amax(dim=axis, keepdim=True).to(torch.float32)
+    if group is not None:
+        all_reduce_max(amax, group)
     # a true division: by a Python number the card multiplies by its
     # reciprocal instead, which moves scales by an ulp
-    scale = torch.clamp_min(amax.to(torch.float32), 1e-8) / torch.full(
+    scale = torch.clamp_min(amax, 1e-8) / torch.full(
         (), 127.0, device=t.device)
     q = torch.clamp(torch.round(t / scale.to(t.dtype)), -127, 127)
     return q.to(torch.int8), scale
@@ -61,21 +77,27 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out[:m, :n]
 
 
-def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``[.., K] @ [K, N]`` on the int8 path, rescaled to x's dtype."""
-    xq, sx = _quant(x, -1)                     # [.., K], [.., 1]
-    wq, sw = _quant(w, 0)                      # [K, N],  [1, N]
+def _int8_matmul(x: torch.Tensor, w: torch.Tensor, group=None
+                 ) -> torch.Tensor:
+    """``[.., K] @ [K, N]`` on the int8 path, rescaled to x's dtype.
+    ``group``: K is split over it."""
+    xq, sx = _quant(x, -1, group)              # [.., K], [.., 1]
+    wq, sw = _quant(w, 0, group)               # [K, N],  [1, N]
     y = _int_mm(xq.reshape(-1, x.shape[-1]), wq)
+    if group is not None:
+        y = all_reduce(y.contiguous(), group)  # exact: int32
     y = y.reshape(*x.shape[:-1], w.shape[1])
     return (y.to(torch.float32) * (sx * sw)).to(x.dtype)
 
 
-def _int8_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _int8_dx(g: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
     """dx = g @ w.T quantized: ``[.., N] x [K, N] -> [.., K]`` (contract
-    N)."""
-    gq, sg = _quant(g, -1)                     # [.., N], [.., 1]
-    wq, sw = _quant(w, 1)                      # [K, N],  [K, 1]
+    N).  ``group``: N is split over it."""
+    gq, sg = _quant(g, -1, group)              # [.., N], [.., 1]
+    wq, sw = _quant(w, 1, group)               # [K, N],  [K, 1]
     dx = _int_mm(gq.reshape(-1, g.shape[-1]), wq.t())
+    if group is not None:
+        dx = all_reduce(dx.contiguous(), group)
     dx = dx.reshape(*g.shape[:-1], w.shape[0])
     return (dx.to(torch.float32) * (sg * sw[:, 0][None, :])).to(g.dtype)
 
@@ -90,13 +112,17 @@ def _int8_dw(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
 
 
 class _Int8Dot(torch.autograd.Function):
-    """Quantized ``x @ w`` (``w [K, N]``); backward quantized or exact."""
+    """Quantized ``x @ w`` (``w [K, N]``); backward quantized or exact.
+    ``tp``: ``("column", group)`` (N split: x's gradient is summed over
+    the group) or ``("row", group)`` (K split: the product is)."""
 
     @staticmethod
-    def forward(ctx, x, w, exact_bwd: bool):
+    def forward(ctx, x, w, exact_bwd: bool, tp):
         ctx.save_for_backward(x, w)
         ctx.exact_bwd = exact_bwd
-        return _int8_matmul(x, w)
+        split, group = tp or (None, None)
+        ctx.group = group if split == "column" else None
+        return _int8_matmul(x, w, group if split == "row" else None)
 
     @staticmethod
     def backward(ctx, g):
@@ -105,21 +131,23 @@ class _Int8Dot(torch.autograd.Function):
         gf = g.reshape(-1, g.shape[-1])
         if ctx.exact_bwd:
             dx = g @ w.t()
+            if ctx.group is not None:
+                all_reduce(dx, ctx.group)
             dw = xf.t() @ gf
         else:
-            dx = _int8_dx(g, w)
+            dx = _int8_dx(g, w, ctx.group)
             dw = _int8_dw(xf, gf)
-        return dx.to(g.dtype), dw.to(w.dtype), None
+        return dx.to(g.dtype), dw.to(w.dtype), None, None
 
 
 def int8_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Quantized ``x @ w`` with int8 forward AND backward products."""
-    return _Int8Dot.apply(x, w, False)
+    return _Int8Dot.apply(x, w, False, None)
 
 
 def int8_dot_fwdonly(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Quantized forward, exact backward in the operands' dtype."""
-    return _Int8Dot.apply(x, w, True)
+    return _Int8Dot.apply(x, w, True, None)
 
 
 class Int8Dense(Dense):
@@ -139,8 +167,9 @@ class Int8Dense(Dense):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         Int8Dense.calls += 1
         dt = _out_dtype(x, self.weight, self.compute_dtype)
-        dot = int8_dot if self.mode == "fwd_bwd" else int8_dot_fwdonly
-        return dot(x.to(dt), self.weight.to(dt).t()) + self.bias.to(dt)
+        y = _Int8Dot.apply(x.to(dt), self.weight.to(dt).t(),
+                           self.mode == "fwd", self.tp)
+        return y + self.bias.to(dt)
 
 
 def dense_cls(quant):

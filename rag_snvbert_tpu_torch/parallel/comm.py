@@ -7,12 +7,17 @@ group stages a CUDA tensor through host memory.  The choice is made from
 one card run gloo (NCCL refuses two ranks on one device), so this is what
 lets the same code run there, on the CPU and across cards.
 
-The three autograd functions are Megatron's: ``copy_to_group`` (``f``:
+The autograd functions are Megatron's: ``copy_to_group`` (``f``:
 identity forward, gradient summed over the group backward) before a
 column-parallel product, ``reduce_from_group`` (``g``: sum forward,
 identity backward) after a row-parallel one, and ``all_reduce_sum`` (sum
 both ways) for a statistic over a sharded dimension whose users are
-themselves sharded (the FFN's LayerNorm).
+themselves sharded (the FFN's LayerNorm); and ``gather_from_group``
+(every rank's column slice concatenated forward, the gradient summed over
+the group and sliced backward, as a reduce-scatter) where a rank needs
+columns that other ranks computed (attention on a head that two ranks
+share).  ``all_reduce_max`` (no gradient) is the max over the group of
+the int8 products' scales.
 """
 
 from __future__ import annotations
@@ -29,6 +34,12 @@ def _staged(group, t: torch.Tensor) -> bool:
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (every backend carries it)."""
     dist.all_reduce(t, group=group)
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group``, in place."""
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
 
 
@@ -97,6 +108,19 @@ class _AllReduceSum(torch.autograd.Function):
         return all_reduce(g.contiguous().clone(), ctx.group), None
 
 
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[-1]
+        ctx.rank = dist.get_rank(group)
+        return torch.cat(list(all_gather(x, group).unbind(0)), -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.group)
+        return g.narrow(-1, ctx.rank * ctx.width, ctx.width), None
+
+
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     return _CopyToGroup.apply(x, group)
 
@@ -107,3 +131,10 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along the last dim in group-rank
+    order; the backward pass sums the gradient over the group and returns
+    this rank's slice of it."""
+    return _GatherFromGroup.apply(x, group)

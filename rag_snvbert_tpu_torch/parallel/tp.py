@@ -10,9 +10,8 @@ the JAX package's, over the port's parameter names (the flax tree's,
 ``interop/flax_params.py``), in torch's ``[out, in]`` layout:
 
   - attention ``query``/``key``/``value`` (or fused ``qkv``) and FFN
-    ``w_1``: column-parallel, ``weight`` dim 0 and ``bias`` split; each
-    rank holds whole heads (a fused ``qkv`` is split per Q, K and V head
-    range, not in contiguous thirds);
+    ``w_1``: column-parallel, ``weight`` dim 0 and ``bias`` split (a fused
+    ``qkv`` is split per Q, K and V third, not in contiguous thirds);
   - attention ``output`` and FFN ``w_2``: row-parallel, ``weight`` dim 1
     split, the partial products summed over the group before the
     (replicated) bias;
@@ -22,11 +21,26 @@ the JAX package's, over the port's parameter names (the flax tree's,
   - everything else (embeddings, fusion, heads, the blocks' LayerNorms
     over D) is replicated.
 
+How a rank computes with its slices:
+
+  - where ``n_model`` divides ``attn_heads`` a rank's columns are whole
+    heads and it runs attention on them alone;
+  - where it does not (``tpu_default``'s 3 heads at tp2 or tp4), a rank's
+    columns split a head: it all-gathers the group's q, k and v columns,
+    runs attention (the CUDA kernel on the card) on the whole heads its
+    columns touch, and keeps its own columns of the context; two ranks
+    that share a head draw the same attention-dropout mask for it, and
+    the gather's backward sums the head's gradient over them;
+  - an ``int8_matmuls`` model's ``Int8Dense`` layers run their own
+    collectives (``ops/quant.py``): scales along a split axis are the
+    group's max and split integer contractions are summed in int32
+    before the rescale.
+
 Adam's moments are made from the parameters after ``shard_model``, so they
 are split like them.  A checkpoint holds full tensors: ``gather_full``
-before a save, ``shard_full`` after a load.  Where ``n_model`` does not
-divide ``attn_heads`` the port raises: its attention kernel works on whole
-heads (JAX accepts the case and GSPMD reshards).
+before a save, ``shard_full`` after a load.  ``shard_model`` raises only
+where the JAX package's ``tp_shardings`` does: where ``n_model`` does not
+divide a split parameter dimension.
 """
 
 from __future__ import annotations
@@ -124,9 +138,6 @@ def shard_full(named: dict, mesh) -> dict:
 
 
 def _validate(model: nn.Module, n: int) -> None:
-    from ..models.transformer import MultiHeadAttention
-    from ..ops.quant import Int8Dense
-
     bad = []
     for name, p in model.named_parameters():
         dim = _split_dim(name, p.dim())
@@ -135,24 +146,17 @@ def _validate(model: nn.Module, n: int) -> None:
     if bad:
         raise ValueError(f"model axis {n} does not divide these params "
                          f"(pick dims/ffn divisible by n_model): {bad[:4]}")
-    for name, mod in model.named_modules():
-        if isinstance(mod, MultiHeadAttention) and mod.heads % n:
-            raise ValueError(
-                f"model axis {n} does not divide the {mod.heads} attention "
-                f"heads of {name}: the port's attention kernel works on "
-                "whole heads (the JAX package lets GSPMD split a head)")
-        if isinstance(mod, Int8Dense):
-            raise ValueError("tensor parallelism of int8_matmuls models is "
-                             "not supported by the port")
 
 
 @torch.no_grad()
 def shard_model(model: nn.Module, mesh) -> nn.Module:
     """Keep this rank's slices of ``model``'s encoder parameters and make
-    its attention and FFN modules run the group's collectives (in place;
-    returned).  A no-op for a model axis of 1.  Raises ``ValueError``
-    when the axis does not divide a split dimension or the head count."""
+    its attention, FFN and ``Int8Dense`` modules run the group's
+    collectives (in place; returned).  A no-op for a model axis of 1.
+    Raises ``ValueError`` when the axis does not divide a split
+    dimension."""
     from ..models.transformer import FeedForward, MultiHeadAttention
+    from ..ops.quant import Int8Dense
 
     n = axis_size(mesh, MODEL_AXIS)
     if n == 1:
@@ -161,15 +165,23 @@ def shard_model(model: nn.Module, mesh) -> nn.Module:
     r, group = axis_rank(mesh, MODEL_AXIS), axis_group(mesh, MODEL_AXIS)
     for name, p in model.named_parameters():
         p.data = shard_tensor(name, p.data, r, n)
-    for mod in model.modules():
+    for name, mod in model.named_modules():
         if isinstance(mod, MultiHeadAttention):
+            hd, cols = mod.dims // mod.heads, mod.dims // n
+            lo = r * cols
+            h0, h1 = lo // hd, -(-(lo + cols) // hd)   # the heads it touches
             mod.tp_group = group
-            mod.local_heads = mod.heads // n
-            mod.attn_drop.heads = (r * mod.local_heads,
-                                   (r + 1) * mod.local_heads, mod.heads)
+            mod.local_heads = h1 - h0
+            mod.head_split = (None if mod.heads % n == 0
+                              else (h0, lo - h0 * hd, cols))
+            mod.attn_drop.heads = (h0, h1, mod.heads)
         elif isinstance(mod, FeedForward):
             mod.tp_group = group
             mod.LayerNorm_0.tp_group = group
+        elif isinstance(mod, Int8Dense):
+            spec = _split_dim(name + ".weight", 2)
+            if spec is not None:
+                mod.tp = ("column" if spec == 0 else "row", group)
     return model
 
 

@@ -14,7 +14,13 @@ runs, against the same work in one process on rank 0:
      all-reduce; and, with more than one data rank, the same fit with
      the gradient sum over the data group skipped, a control that those
      checks must fail;
-  2. the genotype index (664,648 rows x 2040, 1024 queries, k = 10) over
+  2. dp x tp training: the same fit over n/2 data x 2 model ranks, where
+     each rank's 192 columns split one of ``tpu_default``'s three heads
+     of 128, held to the same single-process fit; the same fit with the
+     split head's gradient sum skipped (``split_head_control``), a
+     control that must fail; and an ``int8_matmuls=True`` fit over the
+     same mesh held to its own single-process fit;
+  3. the genotype index (664,648 rows x 2040, 1024 queries, k = 10) over
      n index shards in four storages, each searched with both merges:
      ids and distances equal to ``FlatL2Index``'s.
 
@@ -70,6 +76,13 @@ from ..train.trainer import Trainer, TrainerConfig
 # the first steps: 0.28 at the CPU rehearsal's size).
 LOSS_TOL = PARAM_TOL = NORM_TOL = 1e-3
 DELTA_TOL = 0.05
+# A fit over a model axis sums each block's two row-parallel products in
+# bf16 (one more bf16 rounding, 2^-9, of every block's output, as
+# GSPMD's bf16 all-reduce does), so its gradient norms and parameter
+# change drift further from the single fit than a data-parallel fit's:
+# 8.5e-4 and 0.049 at the CPU rehearsal's size, where skipping a split
+# head's gradient sum (the control) gives 1.4e-3 and 0.25.
+TP_NORM_TOL, TP_DELTA_TOL = 5e-3, 0.1
 BUNDLE = dict(n_train_samples=48, n_ref_samples=1004, n_sites=2 * 1020,
               n_windows=2, seed=23)
 INDEX_SEED = 11
@@ -190,12 +203,34 @@ def compare_fits(got: dict, want: dict) -> dict:
             "norm_rels": norms, "delta_rel": (num / den) ** 0.5}
 
 
-def fit_failures(c: dict) -> list[str]:
-    """The checks of ``compare_fits`` that ``c`` fails."""
+def fit_failures(c: dict, model_axis: bool = False) -> list[str]:
+    """The checks of ``compare_fits`` that ``c`` fails (``model_axis``: a
+    fit over a model axis, held to ``TP_NORM_TOL`` and ``TP_DELTA_TOL``)."""
     tols = {"loss_rel": LOSS_TOL, "param_rel": PARAM_TOL,
-            "norm_rel": NORM_TOL, "delta_rel": DELTA_TOL}
+            "norm_rel": TP_NORM_TOL if model_axis else NORM_TOL,
+            "delta_rel": TP_DELTA_TOL if model_axis else DELTA_TOL}
     return [f"{k} {c[k]:.2e} > {tol}" for k, tol in tols.items()
             if not c[k] <= tol]
+
+
+@contextlib.contextmanager
+def split_head_control():
+    """The gather of a split head's columns with its backward's sum over
+    the group skipped (each rank keeps only its own attention's part of
+    the head's q and k gradient): a fit under it must fail
+    ``compare_fits``."""
+    from ..parallel import comm
+
+    real = comm._GatherFromGroup.backward
+
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.rank * ctx.width, ctx.width), None
+
+    comm._GatherFromGroup.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        comm._GatherFromGroup.backward = staticmethod(real)
 
 
 def allreduce_ms(trainer: Trainer) -> float:
@@ -284,7 +319,49 @@ def run(small: bool, device: torch.device, out_dir: str) -> dict:
             failures.append(f"the control without the gradient sum passes "
                             f"the training checks: {cc}")
 
-    # 2. the genotype index over every rank
+    # 2. dp x tp training (a split head), its control, and int8 at tp2
+    int8 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, int8_matmuls=True))
+    single8 = None
+    if is_writer():
+        single8 = fit(make_trainer(None, os.path.join(out_dir, "single8"),
+                                   int8, bundle, device)[0])
+    dist.barrier()
+    mesh = make_mesh(world // 2, 1, 2, device=device)
+    ops.reset_launches()
+    trainer = make_trainer(mesh, os.path.join(out_dir, "tp"), cfg, bundle,
+                           device)[0]
+    att = trainer.model.bert.encoder.block_0.attention
+    heads = (att.local_heads, att.head_split)
+    got = fit(trainer)
+    launches = _gather_objects(ops.launch_counts())
+    del trainer
+    with split_head_control():
+        control = fit(make_trainer(mesh, os.path.join(out_dir, "tp_control"),
+                                   cfg, bundle, device)[0])
+    got8 = fit(make_trainer(mesh, os.path.join(out_dir, "tp_int8"), int8,
+                            bundle, device)[0])
+    heads = _gather_objects(heads)
+    if is_writer():
+        c, cc, c8 = (compare_fits(got, single), compare_fits(control, single),
+                     compare_fits(got8, single8))
+        report["tp"] = {
+            "mesh": f"{world // 2}x1x2", "heads": heads, **c,
+            "tol": {"norm": TP_NORM_TOL, "delta": TP_DELTA_TOL},
+            "control_split_head_without_sum": cc, "int8": c8,
+            "step_ms_median": statistics.median(got["step_ms"]),
+            "int8_step_ms_median": statistics.median(got8["step_ms"]),
+            "single_int8_step_ms_median": statistics.median(
+                single8["step_ms"]), "launches": launches}
+        failures += [f"dp x tp training: {x}"
+                     for x in fit_failures(c, model_axis=True)]
+        failures += [f"dp x tp int8 training: {x}"
+                     for x in fit_failures(c8, model_axis=True)]
+        if not fit_failures(cc, model_axis=True):
+            failures.append(f"the control without the split head's "
+                            f"gradient sum passes the training checks: {cc}")
+
+    # 3. the genotype index over every rank
     mesh = make_mesh(1, world, 1, device=device)
     bits, q = index_bits(n, d, b, device)
     ops.reset_launches()

@@ -1,8 +1,9 @@
 """The port's verbs over several CPU ranks (gloo; the verb starts its own
 local ranks): ``query --index-shards 2`` gives the single-process query's
 results and the JAX command line's ``--index-shards 2`` results, ``train
---data-parallel 2 --index-shards 2 --dist-backend gloo`` the single-process
-run's losses and weights, and ``infer``/``serve --data-parallel 2`` the
+--data-parallel 2 --index-shards 2 --dist-backend gloo`` and ``train
+--tensor-parallel 2`` of a 3-head model the single-process run's losses
+and weights, and ``infer``/``serve --data-parallel 2`` the
 single-process probabilities; ``tools/mesh_check.py`` passes under
 torchrun.  Each multi-rank run is a subprocess, so a failing rank cannot
 take the test process with it.
@@ -102,7 +103,7 @@ def test_query_index_shards_matches_single_and_jax(files, mode):
             np.testing.assert_array_equal(v, wv)
 
 
-def _train_argv(f, out, *extra):
+def _train_argv(f, out, *extra, model=MODEL):
     return ["train", "--train_dataset", f["train"], "--train_panel",
             f["panel"], "--refpanel_path", f["ref"],
             "--freq_path", os.path.join(f["prep"], "freq"),
@@ -110,7 +111,7 @@ def _train_argv(f, out, *extra):
             "--output_path", out, "--epochs", "1",
             "--train_batch_size", "4", "--val_batch_size", "4",
             "--warmup_steps", "5", "--grad_accum_steps", "1",
-            "--device", "cpu", *MODEL, *extra]
+            "--device", "cpu", *model, *extra]
 
 
 @pytest.fixture(scope="module")
@@ -123,19 +124,39 @@ def trained(files):
     return runs
 
 
-def test_train_data_parallel_index_shards_matches_single(trained):
+def _assert_same_training(runs):
+    """The mesh run's first-epoch loss and checkpointed weights against the
+    single-process run's."""
     import csv
 
     rows = {k: list(csv.DictReader(open(os.path.join(v, "metrics.csv"))))
-            for k, v in trained.items()}
+            for k, v in runs.items()}
     a, b = (float(rows[k][0]["train_loss"]) for k in ("mesh", "single"))
     assert abs(a - b) / max(abs(b), 1.0) < 1e-3
     sd = {k: torch.load(os.path.join(v, "ckpt_ep0", "state.pt"),
                         weights_only=True)["params"]
-          for k, v in trained.items()}
+          for k, v in runs.items()}
     for name, want in sd["single"].items():
         np.testing.assert_allclose(sd["mesh"][name].numpy(), want.numpy(),
                                    rtol=2e-3, atol=2e-4, err_msg=name)
+
+
+def test_train_data_parallel_index_shards_matches_single(trained):
+    _assert_same_training(trained)
+
+
+def test_train_tensor_parallel_splits_a_head(files):
+    """``train --tensor-parallel 2`` of a 3-head model (dims 48): each
+    rank's 24 columns split head 1, as the JAX command line runs it."""
+    model = ["--dims", "48", "--layers", "1", "--attn-heads", "3",
+             "--seq-len", "64"]
+    runs = {k: os.path.join(files["root"], f"train_tp2_{k}")
+            for k in ("single", "mesh")}
+    main(_train_argv(files, runs["single"], model=model))
+    out = _run(_train_argv(files, runs["mesh"], "--tensor-parallel", "2",
+                           "--dist-backend", "gloo", model=model))
+    assert "model=2" in out.stderr
+    _assert_same_training(runs)
 
 
 def _model_argv(f, model_path, *extra):
@@ -173,9 +194,11 @@ def test_infer_and_serve_data_parallel_match_single(files, trained):
 
 def test_mesh_check_under_torchrun(tmp_path):
     """``tools/mesh_check.py`` (the multi-card check) as torchrun starts it,
-    four gloo ranks at its small size: its training (dp2 x idx2) and index
-    parts agree with one process, and its control without the gradient
-    sum fails the training checks."""
+    four gloo ranks at its small size: its training (dp2 x idx2; dp2 x
+    tp2, where each rank's columns split a head, in bf16 and with
+    ``int8_matmuls``) and index parts agree with one process, and its
+    controls (without the gradient sum; without a split head's gradient
+    sum) fail the training checks."""
     env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -191,4 +214,10 @@ def test_mesh_check_under_torchrun(tmp_path):
     assert train["delta_rel"] <= 0.05 and len(train["norm_rels"]) == 4
     control = train["control_without_gradient_sum"]
     assert control["norm_rel"] > 0.1 and control["delta_rel"] > 0.05
+    tp = report["tp"]
+    assert tp["mesh"] == "2x1x2" and [h[0] for h in tp["heads"]] == [2] * 4
+    assert tp["loss_rel"] <= 1e-3 and tp["delta_rel"] <= tp["tol"]["delta"]
+    assert tp["int8"]["loss_rel"] <= 1e-3
+    assert tp["control_split_head_without_sum"]["delta_rel"] \
+        > tp["tol"]["delta"]
     assert set(report["index"]) >= {"packed", "int8", "bf16", "f32"}

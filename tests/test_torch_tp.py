@@ -1,8 +1,9 @@
 """Tensor parallelism of the port (``parallel/tp.py``): the JAX package's
 Megatron placement rules over the port's parameter names, Adam's moments
-split like the parameters, indivisible dims and head counts refused, and a
-tp4 world (gloo, four CPU ranks) whose forward and gradients equal the
-replicated model's at rtol/atol 1e-5.  Mirrors tests/test_tp.py:29-105."""
+split like the parameters, indivisible dims refused (a head count that
+the model axis does not divide shards, as in JAX), and a tp4 world (gloo,
+four CPU ranks) whose forward and gradients equal the replicated model's
+at rtol/atol 1e-5.  Mirrors tests/test_tp.py:29-105."""
 
 import types
 
@@ -28,14 +29,14 @@ def _model(fused_qkv=False, heads=HEADS, dims=DIMS, seed=0):
     return tconfig.build_model(cfg, VOCAB, device="cpu", seed=seed)
 
 
-def _batch(b=2, seed=3):
+def _batch(b=2, seed=3, dims=DIMS):
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(rng.random(s).astype(np.float32))  # noqa: E731
     return {"hap_1": torch.from_numpy(rng.integers(1, VOCAB, (b, L))),
             "hap_2": torch.from_numpy(rng.integers(1, VOCAB, (b, L))),
             "pos": f(b, L), "af": f(b, L), "af_p": f(b, L), "ref": f(b, L),
             "het": f(b, L), "hom": f(b, L),
-            "rag_emb_h1": f(b, 1, L, DIMS), "rag_emb_h2": f(b, 1, L, DIMS)}
+            "rag_emb_h1": f(b, 1, L, dims), "rag_emb_h2": f(b, 1, L, dims)}
 
 
 def test_megatron_specs_match_jax_on_port_names():
@@ -90,12 +91,25 @@ def test_indivisible_dims_fail_loudly():
         tp.shard_model(_model(), _stub_mesh(3))          # 32 % 3 != 0
 
 
+def _tp3_heads_world(rank):
+    model = tp.shard_model(_model(dims=48), make_mesh(1, 1, 3, device="cpu"))
+    with torch.no_grad():
+        y = model(_batch(dims=48))
+    return model.bert.encoder.block_0.attention.head_split, y
+
+
 def test_indivisible_heads_fail_loudly():
-    """dims 48 and hidden 192 divide by 3; 4 heads do not: the port's
-    attention works on whole heads (tpu_default's 3 heads at tp2 is the
-    case the JAX package runs and the port refuses)."""
-    with pytest.raises(ValueError, match="divide the 4 attention heads"):
-        tp.shard_model(_model(dims=48), _stub_mesh(3))
+    """dims 48 and hidden 192 divide by 3; 4 heads do not, and the model
+    shards all the same, as the JAX package's does (only indivisible
+    parameter dims raise): a rank's 16 columns split a head of 12, and
+    the tp3 forward is the replicated model's."""
+    with torch.no_grad():
+        want = _model(dims=48)(_batch(dims=48))
+    runs = spawn(_tp3_heads_world, 3, threads=1)
+    assert [r[0] for r in runs] == [(0, 0, 16), (1, 4, 16), (2, 8, 16)]
+    for _, y in runs:
+        for a, b in zip(want, y):
+            assert float((a - b).abs().max() / (1 + a.abs().max())) < TOL
 
 
 def _tp_world(rank):
