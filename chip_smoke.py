@@ -65,6 +65,12 @@ just before it and read just after:
   - ``tools/run_convergence.py`` at ``tpu_default`` on a four-window
     calibrated panel under ``runs/chip_smoke_convergence/``: an epoch with
     ``--profile`` and one more through ``--resume``, the trace summarized;
+  - ``tools/ab_compat.py``: one epoch of each variant (fixed, perdim,
+    compat) at ``tpu_default`` width on one window of 48 samples and the
+    2048-haplotype reference, each variant's launches checked;
+    ``tools/sweep_topk.py`` at the genotype index shape, int8 and packed,
+    over the default plan and three others (one of two waves): every plan
+    bit-identical to the default and exact against the numpy oracle;
   - the scale-out path (``phase_distributed``): a one-rank NCCL world,
     then gloo worlds whose ranks share the card: dp2 x idx2 training, tp3
     serving (a head a rank), tp2 serving and training of ``tpu_default``
@@ -1777,6 +1783,134 @@ def phase_convergence(profile: bool = False) -> dict[str, int]:
     check("== device" in text and all(n in text for n in names),
           "the trace's summary does not name the attention and l2_topk "
           "kernels")
+    return counts
+
+
+AB_DIR = "runs/chip_smoke_ab_compat"
+AB_ARGV = ["--epochs", "1", "--windows", "1", "--train-samples", "48",
+           "--ref-samples", "1024", "--variants", "fixed,perdim,compat",
+           "--val-frac", "0.25"]
+AB_KEYS = ["variant", "epochs", "best_val_hap_f1", "best_epoch",
+           "final_val_hap_f1", "final_val_rare_f1", "final_train_loss",
+           "wall_min"]
+SWEEP_CHUNKS = 2
+
+
+def phase_ab_compat(profile: bool = False) -> dict[str, int]:
+    """tools/ab_compat.py at tpu_default width, cut to one epoch of one
+    window and 48 samples (the full 2048-haplotype reference): three rows
+    with the JAX tool's keys, and each variant's launches against the
+    counts worked out from the code: fixed and perdim through the
+    attention kernels, compat (attention dropout) through the einsum path,
+    every variant through l2_topk."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.config import PRESETS
+    from rag_snvbert_tpu_torch.tools import ab_compat
+
+    cfg = PRESETS["tpu_default"]
+    card = card_line()
+    shutil.rmtree(AB_DIR, ignore_errors=True)
+    per: dict[str, dict[str, int]] = {}
+    seconds: dict[str, float] = {}
+    run_variant = ab_compat.run_variant
+
+    def counted(run, ds, ids, args, name):
+        torch.cuda.synchronize()
+        before, t = ops.launch_counts(), time.perf_counter()
+        row = run_variant(run, ds, ids, args, name)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        per[name] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return row
+
+    ops.reset_launches()
+    ab_compat.run_variant = counted
+    try:
+        rows = ab_compat.main(AB_ARGV + ["--outdir", AB_DIR])
+    finally:
+        ab_compat.run_variant = run_variant
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    m = cfg.model.n_layers
+    n_val = int(48 * 0.25)
+    micro = -(-(48 - n_val) // cfg.batch_size)
+    val = -(-n_val // cfg.val_batch_size)
+    want = {}
+    for name in ("fixed", "perdim", "compat"):
+        # one epoch: a forward a layer and a search a step (both
+        # haplotypes in one launch), a backward a layer a micro-step
+        kernels = name != "compat"
+        want[name] = {"attention": m * (micro + val) * kernels,
+                      "attention_bwd": m * micro * kernels,
+                      "l2_topk": micro + val, "l2_topk_rf": 0,
+                      "l2_topk_float": 0}
+        print(f"ab_compat {name}: {seconds[name]:.1f} s for one epoch "
+              f"({micro} micro-steps, {val} validation step); launches "
+              f"{per[name]} (expected {want[name]}); {card}")
+    for row in rows:
+        print(f"  {json.dumps(row)}")
+    check([r["variant"] for r in rows] == ["fixed", "perdim", "compat"]
+          and all(list(r) == AB_KEYS for r in rows),
+          "ab_compat rows lack the JAX tool's keys")
+    check(all(0.0 <= r[f] <= 1.0 for r in rows
+              for f in ("best_val_hap_f1", "final_val_hap_f1",
+                        "final_val_rare_f1"))
+          and all(math.isfinite(r["final_train_loss"]) for r in rows),
+          "ab_compat F1 outside [0, 1] or a loss not finite")
+    check(per == want, "ab_compat did not launch the kernels its variants "
+          "take")
+    return counts
+
+
+def phase_sweep_topk(profile: bool = False) -> dict[str, int]:
+    """tools/sweep_topk.py at the genotype index shape (664,648 x 2040,
+    1024-query batches, k = 10), int8 and packed, over the default plan,
+    half its rows (two waves of blocks) and a two-stage ring: every plan
+    bit-identical to the default and exact against the numpy oracle on 128
+    queries."""
+    from rag_snvbert_tpu_torch import ops
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import _BN, row_classes
+    from rag_snvbert_tpu_torch.tools import sweep_topk
+
+    card = card_line()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops.reset_launches()
+    n_plans = 0
+    for dtype, pack in (("int8", 1), ("packed", 8)):
+        classes = row_classes(2040 if pack == 1 else 256, sweep_topk.N_ROWS,
+                              pack, True)
+        rows0, _ = sweep_topk.default_plan(sweep_topk.BATCH,
+                                           sweep_topk.N_ROWS, sweep_topk.K,
+                                           pack, classes, sms)
+        half = -(-(rows0 // 2) // _BN) * _BN
+        argv = ["--dtype", dtype, "--chunks", str(SWEEP_CHUNKS), "--rows",
+                f"{rows0},{half}", "--stages", "4,2"]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rows = sweep_topk.main(argv)
+        took = time.perf_counter() - t
+        n_plans += len(rows)
+        print(f"sweep_topk {dtype}: {len(rows)} plans in {took:.1f} s "
+              f"({SWEEP_CHUNKS} chunks of 1024 queries); {card}")
+        for r in rows:
+            print(f"  rows {r['rows']} ({r['splits']} splits, {r['waves']} "
+                  f"wave(s)) stages {r['stages']}: {r['ms_per_batch']:.4f} "
+                  f"ms a batch, {r['qps']:.1f} qps; equal to the default "
+                  f"{r['ids_equal_default']}, exact against the oracle "
+                  f"{r['oracle_exact']}")
+        check(all(r["ids_equal_default"] and r["oracle_exact"]
+                  for r in rows) and max(r["waves"] for r in rows) > 1,
+              f"sweep_topk {dtype}: a plan disagrees, or none took two "
+              "waves")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # a dtype: one pass of the default plan (what every plan is held to),
+    # then each plan one pass to check it and two timed passes
+    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
+            "l2_topk_rf": SWEEP_CHUNKS * (2 + 3 * n_plans),
+            "l2_topk_float": 0}
+    print(f"sweep_topk launches {counts} (expected {want})")
+    check(counts == want, "sweep_topk did not go through l2_topk_rf")
     return counts
 
 
@@ -4014,6 +4148,8 @@ def main() -> None:
                         ("cli", phase_cli),
                         ("interop", phase_interop),
                         ("convergence", phase_convergence),
+                        ("ab_compat", phase_ab_compat),
+                        ("sweep_topk", phase_sweep_topk),
                         ("quality_ckpt", phase_quality_ckpt),
                         ("distributed", phase_distributed)):
         torch.cuda.empty_cache()

@@ -25,6 +25,10 @@ with the selection as the products' epilogue; this module plans the split
 of the ref rows (``split_plan``), the ring's depth within the block's
 shared memory (``smem_bytes``, ``ring_stages``) and the workspace, and
 mirrors the kernel's K walk over packed refs (``packed_k_walk``).
+``plan=(rows per split, ring stages)`` overrides the first two (the
+counterpart of the TPU kernel's ``tq``/``tn``/``td`` keywords, which
+``tools/sweep_topk.py`` sweeps; the tiles here are the kernel's
+compile-time constants); the result is the same under every plan.
 ``compute="int4"`` is accepted and computed as int8 (Hopper has no int4
 mma): the result is the same.  ``l2_topk_rf`` takes the plain version for
 CPU tensors only; a CUDA tensor goes to the kernel, or the wrapper raises
@@ -127,7 +131,7 @@ def split_plan(b: int, n: int, sm_count: int, classes: int = 1
     q_tiles = -(-b // _BQ)
     ranges = max(1, min(n_tiles, sm_count // (q_tiles * classes)))
     rows = -(-n_tiles // ranges) * _BN
-    return -(-(n // classes) // rows) * classes, rows
+    return plan_splits(n, classes, rows), rows
 
 
 def smem_bytes(kp: int, packed: bool, stages: int) -> int:
@@ -168,6 +172,36 @@ def packed_k_walk(d: int, refs_width: int, pack: int) -> list[tuple[int, int, in
     return [(cb, m, u0) for cb, m, u0 in walk if u0 < max(d, 1)]
 
 
+def check_plan(plan: tuple[int, int] | None, k: int, pack: int) -> None:
+    """Raise ``ValueError`` unless ``plan`` is None or ``(rows, stages)``
+    with ``rows`` a positive multiple of 192 and ``stages`` in
+    ``1 ... ring_stages``."""
+    if plan is None:
+        return
+    try:
+        rows, stages = plan
+    except (TypeError, ValueError):
+        raise ValueError(f"l2_topk_rf: plan must be (rows per split, ring "
+                         f"stages), got {plan!r}") from None
+    deepest = ring_stages(list_stride(k), pack > 1)
+    for name, x in (("rows", rows), ("stages", stages)):
+        if isinstance(x, bool) or not isinstance(x, int):
+            raise ValueError(f"l2_topk_rf: plan {name} must be an int, got "
+                             f"{x!r}")
+    if rows <= 0 or rows % _BN:
+        raise ValueError(f"l2_topk_rf: plan rows must be a positive "
+                         f"multiple of {_BN}, got {rows}")
+    if not 1 <= stages <= deepest:
+        raise ValueError(f"l2_topk_rf: plan stages must lie in 1 ... "
+                         f"{deepest}, got {stages}")
+
+
+def plan_splits(n: int, classes: int, rows: int) -> int:
+    """The splits of ``rows`` rows of one class each that cover ``n``
+    rows of ``classes`` classes (range-major, as ``split_plan``'s)."""
+    return -(-(n // classes) // rows) * classes
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -205,13 +239,18 @@ def _check(queries, refs, r_norms, k, pack, compute) -> None:
 
 def l2_topk_rf(queries: torch.Tensor, refs: torch.Tensor,
                r_norms: torch.Tensor, k: int, pack: int = 1,
-               compute: str | None = None
+               compute: str | None = None,
+               plan: tuple[int, int] | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest rows of ``refs`` for each int8 query by exact squared L2
     (see the module docstring).  On the card the unpacked width may reach
     ``MAX_WIDTH`` bytes, within which int32 distances cannot overflow;
-    finite norms are the rows' squared norms (below 2^28 there)."""
+    finite norms are the rows' squared norms (below 2^28 there).
+    ``plan``: ``(rows per split, ring stages)`` in place of ``split_plan``
+    and ``ring_stages``' choice (checked on every device; the plain version
+    has no plan)."""
     _check(queries, refs, r_norms, k, pack, compute)
+    check_plan(plan, k, pack)
     if queries.device.type == "cpu":
         return l2_topk_rf_plain(queries, refs, r_norms, k, pack)
     if queries.device.type != "cuda":
@@ -239,7 +278,11 @@ def l2_topk_rf(queries: torch.Tensor, refs: torch.Tensor,
     index = queries.device.index
     sms = _sm_count(torch.cuda.current_device() if index is None else index)
     classes = row_classes(rw, n, pack, refs.data_ptr() % 16 == 0) if n else 1
-    splits, rows = split_plan(b, max(n, 1), sms, classes)
+    if plan is None:
+        splits, rows = split_plan(b, max(n, 1), sms, classes)
+    else:
+        rows, stages = plan
+        splits = plan_splits(max(n, 1), classes, rows)
     # the splits' lists (distances, then ids), then the queries copied to
     # rows of 16-byte stride where theirs are not
     lists = -(-8 * splits * b * k // 256) * 256

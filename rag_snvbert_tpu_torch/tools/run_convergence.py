@@ -20,6 +20,9 @@ a torch.profiler trace of 4 steady micro-steps of the first epoch under
     python -m rag_snvbert_tpu_torch.tools.run_convergence \
         --out runs/convergence_port --epochs 4 --resume
         # restores the newest checkpoint, replays the curriculum
+    python -m rag_snvbert_tpu_torch.tools.run_convergence \
+        --out runs/convergence_port --steps-per-dispatch 4
+        # each chunk of 4 micro-steps of a window runs as one graph replay
 
 The model trains on the card unless ``--device cpu`` is given.  The bundle
 is a pure function of (--seed, shape flags), so a resumed run regenerates
@@ -71,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pad each window's reference set to this many "
                     "haps (2048 = the full chr21-scale panel; smaller for "
                     "smoke runs: the padded context sets the memory)")
+    ap.add_argument("--steps-per-dispatch", type=int, default=1,
+                    help="train K micro-steps of a window per dispatch "
+                    "(one CUDA graph replay a chunk on the card; the JAX "
+                    "train verb's --steps-per-dispatch); 1 = step by step")
     ap.add_argument("--profile", action="store_true",
                     help="capture a torch.profiler trace of 4 steady train "
                     "micro-steps into <out>/profile")
@@ -133,6 +140,7 @@ def main(argv=None) -> dict:
         min_delta=args.min_delta, rag_mode=run.model.rag_mode,
         ref_pad_haps=args.ref_pad_haps, output_dir=args.out,
         log_freq=args.log_freq, seed=args.seed, keep_checkpoints=2,
+        steps_per_dispatch=args.steps_per_dispatch,
         profile_dir=os.path.join(args.out, "profile") if args.profile
         else None)
     tr = Trainer(model, ds, cfg, train_sample_ids=train_ids,

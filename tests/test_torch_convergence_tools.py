@@ -76,6 +76,22 @@ def test_resume_replays_the_curriculum_and_draws_the_same(straight,
         assert [a[i] for i in keep] == [b[i] for i in keep]
 
 
+def test_steps_per_dispatch_defaults_to_one_and_keeps_the_rows(straight,
+                                                               tmp_path):
+    """--steps-per-dispatch defaults to 1, the JAX tool's step-by-step
+    loop; K = 3 (a chunk runs eagerly on the CPU) trains the rows the
+    default trains, but for the seconds."""
+    assert run_convergence.build_parser().parse_args(
+        []).steps_per_dispatch == 1
+    out = tmp_path / "k3"
+    _run(out, "--epochs", "2", "--steps-per-dispatch", "3")
+    want, got = _rows(straight[0]), _rows(out)
+    keep = [i for i, c in enumerate(want[0]) if not c.endswith("_seconds")]
+    assert got[0] == want[0] and len(got) == len(want) == 3
+    for a, b in zip(want[1:], got[1:]):
+        assert [a[i] for i in keep] == [b[i] for i in keep]
+
+
 @pytest.mark.parametrize("subsample", [0, 10])
 def test_split_and_subsample_are_the_jax_tools(subsample):
     """The JAX tool's inline split (tools/run_convergence.py:104-113) on

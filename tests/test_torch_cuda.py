@@ -465,6 +465,31 @@ def test_l2_topk_rf_takes_an_unaligned_base(cuda, pack):
     assert torch.equal(ids, ri) and torch.equal(vals, rv)
 
 
+@pytest.mark.parametrize("b,n,d,pack,k", [
+    (33, 4100, 2040, 1, 10), (130, 5000, 2040, 8, 10),
+    (33, 3000, 1030, 1, 128), (64, 4100, 1040, 2, 17)])
+@pytest.mark.parametrize("rows_x", [1, 8, 40])
+def test_l2_topk_rf_plans_give_the_default_bits(cuda, b, n, d, pack, k,
+                                                rows_x):
+    """Any ``plan=(rows, stages)`` within the ring's depth: the plain
+    version's answer and the default plan's bits (a plan of 192 rows is
+    tens of splits, several waves of blocks)."""
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import (l2_topk_rf,
+                                                      l2_topk_rf_plain,
+                                                      list_stride,
+                                                      ring_stages)
+
+    q, refs, norms = _int8_case(b, n, d, pack, 11, cuda)
+    want = l2_topk_rf(q, refs, norms, k, pack=pack)
+    rv, ri = l2_topk_rf_plain(q, refs, norms, k, pack=pack)
+    assert torch.equal(want[1], ri) and torch.equal(want[0], rv)
+    for stages in range(1, ring_stages(list_stride(k), pack > 1) + 1):
+        got = l2_topk_rf(q, refs, norms, k, pack=pack,
+                         plan=(192 * rows_x, stages))
+        assert torch.equal(got[0], want[0]), stages
+        assert torch.equal(got[1], want[1]), stages
+
+
 @pytest.mark.parametrize("pack", [1, 8])
 @pytest.mark.parametrize("first", [185, 570, 49140])
 def test_l2_topk_rf_all_ties_across_tile_and_split_edges(cuda, pack, first):
