@@ -1,0 +1,20 @@
+"""``mfu.train``: the training window's model operations (each micro-step's
+``flops.train_step`` and each window context's ``flops.window_context``,
+counted from shapes) over its seconds, as a share of the configuration's
+peak (``flops.PEAK_FLOP_PER_S``)."""
+
+from benchmark import flops
+
+UNIT = "%"
+
+
+def read(r):
+    c, m = r.counts, r.config["model"]
+    if not c.get("micro_steps"):
+        return None
+    ops = (c["micro_steps"] * flops.train_step(m, c["batch_size"],
+                                                c["seq_len"],
+                                                c["context_rows"])
+           + c["window_contexts"] * flops.window_context(
+               m, c["context_rows"], c["seq_len"]))
+    return 100.0 * ops / r.window_s / flops.PEAK_FLOP_PER_S[r.config["peak"]]
