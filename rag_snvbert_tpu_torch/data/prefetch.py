@@ -17,13 +17,16 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, TypeVar
 
+from ..utils.timing import span
+
 T = TypeVar("T")
 
 _SENTINEL = object()
 
 
 def prefetch_iter(it: Iterable[T], size: int = 2,
-                  transform: Callable[[T], T] | None = None) -> Iterator[T]:
+                  transform: Callable[[T], T] | None = None, *,
+                  wait_span: str) -> Iterator[T]:
     """Iterate ``it`` on a background thread, keeping up to ``size`` items
     ready.  Exceptions from the producer re-raise at the consumer.
 
@@ -31,6 +34,10 @@ def prefetch_iter(it: Iterable[T], size: int = 2,
     host->device transfers (torch copies may be issued from any thread) so the copy
     overlaps the previous device step instead of sitting on the critical
     path between steps.
+
+    ``wait_span``: the consumer's wait on the queue is a
+    ``utils.timing.span`` of that name, one per item taken (and one for
+    the end of the stream, where the consumer reaches it).
     """
     q: queue.Queue = queue.Queue(maxsize=size)
 
@@ -46,7 +53,8 @@ def prefetch_iter(it: Iterable[T], size: int = 2,
     t = threading.Thread(target=produce, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span(wait_span):
+            item = q.get()
         if isinstance(item, tuple) and len(item) == 2 and item[0] is _SENTINEL:
             if item[1] is not None:
                 raise item[1]

@@ -2,7 +2,9 @@
 
 Port of rag_snvbert_tpu/infer/httpd.py (standard library only).
 Endpoints:
-  GET  /health   -> {"ok": true, "ref_sites": N, "requests": N}
+  GET  /health   -> {"ok": true, "ref_sites": N, "requests": N}, and
+                    "stats" (``BatchingImputationService.stats``) where
+                    the service keeps them
   POST /impute   -> the body is one ``ImputationService.handle`` request
                     dict; the response is its response dict (200, or 422
                     when it reports an error); 400 for a body that is not
@@ -50,9 +52,12 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path != "/health":
             self._reply(404, {"ok": False, "error": "unknown path"})
             return
-        self._reply(200, {"ok": True,
-                          "ref_sites": self.service.ref_vcf.n_variants,
-                          "requests": self.counter[0]})
+        payload = {"ok": True, "ref_sites": self.service.ref_vcf.n_variants,
+                   "requests": self.counter[0]}
+        stats = getattr(self.service, "stats", None)
+        if stats is not None:
+            payload["stats"] = stats
+        self._reply(200, payload)
 
     def do_POST(self):  # noqa: N802
         if self.path != "/impute":

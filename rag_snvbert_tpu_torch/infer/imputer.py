@@ -36,6 +36,7 @@ from ..parallel.mesh import DATA_AXIS, axis_group, data_sharding
 from ..train.retrieval import (TokenWindowContext, WindowRefContext,
                                build_token_window_ctx, check_int8_vocab,
                                encode_window_refs, retrieve, retrieve_tokens)
+from ..utils.timing import span
 
 
 @dataclasses.dataclass
@@ -122,6 +123,7 @@ class Imputer:
         self.batch_size = batch_size
         self.use_kernel = use_kernel
         self.pipeline_depth = max(int(pipeline_depth), 1)
+        self.rows_padded = 0      # device batch rows beyond the samples
         n = ref_vcf.n_variants
         if window is not None:
             self.windows = [(int(s), int(min(e, n)))
@@ -250,7 +252,17 @@ class Imputer:
         """Impute all target samples over the whole reference site list.
 
         ``pop``: population class for the af_p/ref/het/hom features
-        (defaults to the global pool)."""
+        (defaults to the global pool).
+
+        Spans (``utils/timing.py``): ``imputer.call`` around all of it,
+        ``imputer.window_context`` around each context built,
+        ``imputer.assembly_wait`` around each wait on the assembly thread,
+        ``imputer.launch`` around each device batch's copies and enqueue,
+        ``imputer.drain`` around each batch's fetch and scatter."""
+        with span("imputer.call"):
+            return self._impute(target, pop)
+
+    def _impute(self, target: VCFData, pop: int | None) -> ImputationResult:
         target = self._sorted_target(target)
         n_sites = self.ref_vcf.n_variants
         n_samp = target.n_samples
@@ -267,7 +279,8 @@ class Imputer:
 
         def make_ctx(w):
             s, e = self.windows[w]
-            return self._window_ctx(s, e, ~present[s:e], w)
+            with span("imputer.window_context"):
+                return self._window_ctx(s, e, ~present[s:e], w)
 
         def assemble(w):
             """Host-side query assembly for one window (pure numpy):
@@ -297,7 +310,8 @@ class Imputer:
         # window's forwards, before their outputs are fetched, while a
         # daemon thread assembles the next window's numpy queries.
         assembled = prefetch_iter(
-            (assemble(w) for w in range(len(self.windows))), size=1)
+            (assemble(w) for w in range(len(self.windows))), size=1,
+            wait_span="imputer.assembly_wait")
         next_ctx = make_ctx(0) if self.windows else None
         for w, (s, e) in enumerate(self.windows):
             n = e - s
@@ -309,14 +323,15 @@ class Imputer:
             const = {k: self._tensor(v) for k, v in const.items()}
 
             def scatter(b0, b1, nb, out):
-                if self.data_group is not None:   # every data rank's rows
-                    out = (comm.all_gather(t, self.data_group).flatten(0, 1)
-                           for t in out)
-                p1, p2, pg = (t.cpu().numpy() for t in out)
-                # strip SOS slot and padding: body = sites s..e at 1..n
-                hap1[s:e, b0:b1] = p1[:nb, 1: 1 + n].T
-                hap2[s:e, b0:b1] = p2[:nb, 1: 1 + n].T
-                gtp[s:e, b0:b1] = pg[:nb, 1: 1 + n].transpose(1, 0, 2)
+                with span("imputer.drain"):
+                    if self.data_group is not None:   # every data rank's
+                        out = (comm.all_gather(t, self.data_group)
+                               .flatten(0, 1) for t in out)
+                    p1, p2, pg = (t.cpu().numpy() for t in out)
+                    # strip SOS slot and padding: body = sites s..e at 1..n
+                    hap1[s:e, b0:b1] = p1[:nb, 1: 1 + n].T
+                    hap2[s:e, b0:b1] = p2[:nb, 1: 1 + n].T
+                    gtp[s:e, b0:b1] = pg[:nb, 1: 1 + n].transpose(1, 0, 2)
 
             # Outputs are fetched a few batches behind the launches: the
             # depth bound caps device-resident outputs at O(depth) batches.
@@ -325,16 +340,20 @@ class Imputer:
                 b1 = min(b0 + bs, n_samp)
                 nb = b1 - b0
                 pad = bs - nb
+                self.rows_padded += pad
 
                 def pad_rows(x):
                     return np.concatenate([x, np.repeat(x[:1], pad, 0)]) \
                         if pad else x
 
                 mine = self.rows
-                haps = {"hap_1": self._tensor(pad_rows(toks1[b0:b1])[mine]),
-                        "hap_2": self._tensor(pad_rows(toks2[b0:b1])[mine])}
-                pending.append((b0, b1, nb,
-                                self._forward({**haps, **const}, ctx)))
+                with span("imputer.launch"):
+                    haps = {"hap_1": self._tensor(
+                                pad_rows(toks1[b0:b1])[mine]),
+                            "hap_2": self._tensor(
+                                pad_rows(toks2[b0:b1])[mine])}
+                    pending.append((b0, b1, nb,
+                                    self._forward({**haps, **const}, ctx)))
                 if len(pending) > self.pipeline_depth:
                     scatter(*pending.pop(0))
             if w + 1 < len(self.windows):

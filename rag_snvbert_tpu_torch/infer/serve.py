@@ -135,6 +135,7 @@ class _Pending:
     target: VCFData
     key: int                      # hash of the target's site pattern
     rounds: int = 1
+    enqueued: float = dataclasses.field(default_factory=time.monotonic)
     done: threading.Event = dataclasses.field(
         default_factory=threading.Event)
     result: ImputationResult | None = None
@@ -168,6 +169,10 @@ class BatchingImputationService(ImputationService):
         self._closed = False
         self._merged_requests = 0   # requests that rode a shared impute
         self._impute_calls = 0
+        self._queue_wait_s = 0.0    # enqueue -> group taken, summed
+        self._queue_wait_max_s = 0.0
+        self._linger_s = 0.0        # waiting for merge partners
+        self._rows_padded = 0       # device batch rows beyond the samples
         self._thread = threading.Thread(target=self._scheduler_loop,
                                         daemon=True,
                                         name="impute-scheduler")
@@ -237,13 +242,16 @@ class BatchingImputationService(ImputationService):
                     group.append(self._queue[i])
                     del self._queue[i]
                     continue
-                remaining = deadline - time.monotonic()
+                now = time.monotonic()
+                remaining = deadline - now
                 if remaining <= 0 or self._queue:
                     break       # incompatible work waiting: don't linger
                 self._cv.wait(timeout=remaining)
+                self._linger_s += time.monotonic() - now
             return group
 
     def _run_group(self, group: list[_Pending]) -> None:
+        padded = getattr(self.imputer, "rows_padded", 0)   # any imputer-like
         try:
             if len(group) == 1:
                 it = group[0]
@@ -277,16 +285,33 @@ class BatchingImputationService(ImputationService):
                 if not it.done.is_set():
                     it.error = e
                     it.done.set()
+        finally:
+            self._rows_padded += getattr(self.imputer, "rows_padded",
+                                         0) - padded
 
     def _scheduler_loop(self) -> None:
         while True:
             group = self._take_group()
             if not group:       # closed and drained
                 return
+            now = time.monotonic()
+            for it in group:
+                wait = now - it.enqueued
+                self._queue_wait_s += wait
+                self._queue_wait_max_s = max(self._queue_wait_max_s, wait)
             self._impute_calls += 1
             self._run_group(group)
 
     @property
     def stats(self) -> dict:
+        """The scheduler's counters (``/health`` returns them): imputations
+        run, requests merged into shared ones, the seconds requests waited
+        from their enqueue to their group being taken (summed and the
+        largest), the seconds the scheduler lingered for merge partners,
+        and the device batch rows beyond the samples (padding)."""
         return {"impute_calls": self._impute_calls,
-                "merged_requests": self._merged_requests}
+                "merged_requests": self._merged_requests,
+                "queue_wait_s": self._queue_wait_s,
+                "queue_wait_max_s": self._queue_wait_max_s,
+                "linger_s": self._linger_s,
+                "rows_padded": self._rows_padded}

@@ -16,6 +16,13 @@ their template arguments cut off (``attention_fwd_kernel<64, ...>`` ->
 ``aten::linear`` holds its ``aten::mm``), so their busy time double counts
 and only their ranking means anything.
 
+Where the trace has device work, it also prints the device's idle time
+by program span (``utils.timing.span``: ``trainer.*``, ``dispatch.*``,
+``imputer.*``): the holes in the union of the device intervals over the
+traced range, each idle instant given to the innermost program span on
+the launching thread (the thread with the most CUDA runtime calls) that
+covers it, or to no span.
+
     python -m rag_snvbert_tpu_torch.tools.summarize_trace runs/x/profile
     python -m rag_snvbert_tpu_torch.tools.summarize_trace runs/x/profile \
         --top 25 --classes
@@ -33,6 +40,8 @@ import re
 import sys
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+PROGRAM_SPANS = ("trainer.", "dispatch.", "imputer.")
+NO_SPAN = "(no program span)"
 
 
 def find_trace(root: str) -> str:
@@ -125,6 +134,89 @@ def summarize(events: list[dict], top: int = 20, track: str | None = None,
     return "\n".join(out)
 
 
+def _holes(intervals, lo: float, hi: float) -> list[tuple[float, float]]:
+    """The holes of the union of ``intervals`` inside ``[lo, hi]``."""
+    out, end = [], lo
+    for a, b in sorted(intervals):
+        if a > end:
+            out.append((end, min(a, hi)))
+        end = max(end, b)
+        if end >= hi:
+            break
+    if end < hi:
+        out.append((end, hi))
+    return [(a, b) for a, b in out if b > a]
+
+
+def _innermost(spans) -> list[tuple[float, float, str]]:
+    """``spans`` ``[(start, end, name)]`` of one thread as disjoint pieces,
+    each named by the innermost span that covers it (the latest to
+    start)."""
+    spans = sorted(spans, key=lambda s: (s[0], -s[1]))
+    points = sorted({t for a, b, _ in spans for t in (a, b)})
+    out, open_, i = [], [], 0
+    for t0, t1 in zip(points, points[1:]):
+        while i < len(spans) and spans[i][0] <= t0:
+            open_.append(spans[i])
+            i += 1
+        open_ = [s for s in open_ if s[1] >= t1]
+        if open_:
+            out.append((t0, t1, open_[-1][2]))
+    return out
+
+
+def idle_by_span(device, spans, lo: float, hi: float) -> dict:
+    """Microseconds of device idle in ``[lo, hi]`` by the innermost of
+    ``spans`` covering them (``NO_SPAN``: none); ``device`` and ``spans``
+    are ``[(start, end, ...)]`` in microseconds."""
+    out: collections.Counter = collections.Counter()
+    pieces = _innermost(spans)
+    j = 0
+    for a, b in _holes([(x[0], x[1]) for x in device], lo, hi):
+        covered = 0.0
+        while j < len(pieces) and pieces[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(pieces) and pieces[k][0] < b:
+            us = min(b, pieces[k][1]) - max(a, pieces[k][0])
+            out[pieces[k][2]] += us
+            covered += us
+            k += 1
+        out[NO_SPAN] += (b - a) - covered
+    return dict(out)
+
+
+def idle_table(events: list[dict]) -> str:
+    """The device's idle time by program span (module docstring), or ""
+    for a trace without device work."""
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    device = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+              for e in xs if e.get("cat") in DEVICE_CATS]
+    if not device:
+        return ""
+    lo = min(float(e["ts"]) for e in xs)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in xs)
+    # host spans only: with CUDA activity the trace also projects each
+    # span onto the device's timeline (category gpu_user_annotation)
+    program = [e for e in xs if e.get("cat") == "user_annotation"
+               and e.get("name", "").startswith(PROGRAM_SPANS)]
+    thread = collections.Counter(
+        (e["pid"], e.get("tid")) for e in xs
+        if e.get("cat") == "cuda_runtime").most_common(1)
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+             for e in program
+             if thread and (e["pid"], e.get("tid")) == thread[0][0]]
+    idle = idle_by_span(device, spans, lo, hi)
+    total = sum(idle.values())
+    window = hi - lo
+    out = [f"\n== device idle by program span: {total / 1e3:.3f} ms of "
+           f"{window / 1e3:.3f} ms ({100 * total / window:.2f}%)",
+           f"{'span':40s} {'idle ms':>10s} {'%window':>8s}"]
+    for name, us in sorted(idle.items(), key=lambda x: -x[1]):
+        out.append(f"{name:40s} {us / 1e3:10.3f} {100 * us / window:8.3f}")
+    return "\n".join(out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("dir", help="a trace file or a directory holding one")
@@ -138,7 +230,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     path = find_trace(args.dir)
     print(f"trace: {path}", file=sys.stderr)
-    print(summarize(load_events(path), args.top, args.track, args.classes))
+    events = load_events(path)
+    print(summarize(events, args.top, args.track, args.classes))
+    table = idle_table(events)
+    if table:
+        print(table)
 
 
 if __name__ == "__main__":

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..models.layers import RecomputeDraws, set_recompute_draws
+from ..utils.timing import span
 from . import metrics
 from .schedule import Optimizer
 from .step import StepConfig, step_generator, step_seed, train_steps
@@ -165,7 +166,13 @@ class ChunkRunner:
         """One chunk: ``batches`` leaves ``[n, ...]`` (one window), ``ctx``
         the window's context, ``step`` the first micro-step's number.
         Returns ``{"loss", "grad_norm"}``, ``[n]`` device tensors (on the
-        card the graph's buffers, rewritten by its next replay)."""
+        card the graph's buffers, rewritten by its next replay).  A span
+        ``dispatch.chunk`` wraps it (``dispatch.capture`` a capture inside
+        it, outside the graph's capture region)."""
+        with span("dispatch.chunk"):
+            return self._run(batches, ctx, step)
+
+    def _run(self, batches: dict, ctx, step: int) -> dict:
         n = next(iter(batches.values())).shape[0]
         plan, rows = [], []
         for _ in range(n):
@@ -314,8 +321,9 @@ class ChunkRunner:
                _ctx_sig(ctx), torch.are_deterministic_algorithms_enabled())
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = self._capture(plan, batches, static_ctx,
-                                                 rows, step)
+            with span("dispatch.capture"):
+                g = self.graphs[key] = self._capture(plan, batches,
+                                                     static_ctx, rows, step)
         for k, v in batches.items():
             g.batches[k].copy_(v)
         for u, row in enumerate(rows):

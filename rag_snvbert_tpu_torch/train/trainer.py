@@ -72,7 +72,7 @@ from ..models.layers import BatchRows
 from ..parallel import tp
 from ..parallel.mesh import (DATA_AXIS, INDEX_AXIS, MODEL_AXIS, axis_group,
                              axis_rank, axis_size, is_writer)
-from ..utils.timing import start_trace, stop_trace
+from ..utils.timing import span, start_trace, stop_trace
 from . import metrics as metrics_lib
 from .retrieval import (build_token_window_ctx, check_int8_vocab,
                         encode_window_refs)
@@ -371,6 +371,15 @@ class Trainer:
         return self.val_ds is not None or self.val_sample_ids is not None
 
     def _run_epoch(self, epoch: int, train: bool) -> dict:
+        """One epoch (``train`` or validation); returns its summary.  Its
+        spans: ``trainer.epoch`` around all of it, ``trainer.window_context``
+        around each context built, ``trainer.batch_wait`` around each wait
+        on the prefetch queue, ``dispatch.chunk`` around each training
+        dispatch (``utils/timing.py``)."""
+        with span("trainer.epoch"):
+            return self._epoch(epoch, train)
+
+    def _epoch(self, epoch: int, train: bool) -> dict:
         cfg = self.cfg
         ds = self.train_ds if train else (self.val_ds or self.train_ds)
         sample_ids = self.train_sample_ids if train else self.val_sample_ids
@@ -407,21 +416,24 @@ class Trainer:
         to_device = lambda mb: (mb[0], self._put_batch(mb[1]))  # noqa: E731
         if cfg.prefetch_batches > 0:
             batch_iter = prefetch_iter(batch_iter, size=cfg.prefetch_batches,
-                                       transform=to_device)
+                                       transform=to_device,
+                                       wait_span="trainer.batch_wait")
         else:
             batch_iter = map(to_device, batch_iter)
         for meta, batch, next_meta in _with_lookahead(batch_iter):
             if use_rag and meta.window_idx != current_wid:
                 ctx = prefetched.pop(meta.window_idx, None)
                 if ctx is None:
-                    ctx = self._window_ctx(ds, meta, level, seed)
+                    with span("trainer.window_context"):
+                        ctx = self._window_ctx(ds, meta, level, seed)
                 current_wid = meta.window_idx
             if (use_rag and cfg.prefetch_ctx and next_meta is not None
                     and next_meta.window_idx != current_wid
                     and next_meta.window_idx not in prefetched):
                 prefetched.clear()
-                prefetched[next_meta.window_idx] = self._window_ctx(
-                    ds, next_meta, level, seed)
+                with span("trainer.window_context"):
+                    prefetched[next_meta.window_idx] = self._window_ctx(
+                        ds, next_meta, level, seed)
             if k_chunk > 1:
                 out = self.runner.run(batch, ctx, self.step)
                 n = out["loss"].shape[0]
@@ -430,9 +442,10 @@ class Trainer:
                 n_batches += n
             elif train:
                 gen = step_generator(cfg.seed, self.step, self.device)
-                stats, acc = train_step(self.model, self.optimizer, batch,
-                                        ctx, self.step_cfg, gen, acc,
-                                        self.data_group, rows)
+                with span("dispatch.chunk"):
+                    stats, acc = train_step(self.model, self.optimizer,
+                                            batch, ctx, self.step_cfg, gen,
+                                            acc, self.data_group, rows)
                 self.step += 1
                 n_batches += 1
             else:

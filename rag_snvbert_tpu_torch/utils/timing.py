@@ -1,75 +1,42 @@
-"""Tracing and profiling utilities.
+"""Tracing: program spans and the profiler capture.
 
-The counterpart of rag_snvbert_tpu/utils/timing.py.  The reference's
-observability is a wall-clock ``timer`` decorator (src/dataset/
-utils.py:23-36); this module keeps it and adds:
-  - ``Phase``: nestable named phase timers with a summary table;
-  - ``profile_trace``: a context manager around ``torch.profiler`` (host
-    and, where a card is present, CUDA activity) that writes a Chrome trace
-    (``*.pt.trace.json``) under a directory, the file
-    ``tools/summarize_trace.py`` reads;
-  - ``annotate``: ``torch.profiler.record_function``, a named region inside
-    the trace.
+The counterpart of rag_snvbert_tpu/utils/timing.py.
+
+  - ``span(name)``: a named region of host code.  While a ``torch.profiler``
+    capture records on the calling thread it is
+    ``torch.profiler.record_function(name)``, so the exported Chrome trace
+    holds the span on the clock of the kernel, copy and fill records and
+    each device idle gap can be laid against the host code around it.
+    Otherwise it is a shared no-op, after one read of the profiler's flag
+    (under a microsecond; an ungated ``record_function`` costs 6-15 us
+    with the profiler off).  A span wraps host code only: it adds
+    no synchronisation, device copy, event or device allocation, and never
+    sits inside a CUDA graph capture.  Names are ``<layer>.<what>``
+    (``trainer.epoch``, ``dispatch.chunk``, ``imputer.launch``, ...); the
+    number of spans is the count of the work they wrap.
+  - ``start_trace``/``stop_trace``/``profile_trace``: a ``torch.profiler``
+    capture (host and, on the card, CUDA activity) that writes a Chrome
+    trace (``*.pt.trace.json``) under a directory, the file
+    ``tools/summarize_trace.py`` reads.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
-import functools
-import logging
 import os
 import time
 
 import torch
 
-log = logging.getLogger("rag_snvbert_tpu_torch")
+_OFF = contextlib.nullcontext()
 
 
-def timer(fn):
-    """Wall-clock decorator (reference parity: utils.py:23-36)."""
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        t0 = time.time()
-        out = fn(*args, **kwargs)
-        log.info("%s took %.3fs", getattr(fn, "__qualname__", fn.__name__),
-                 time.time() - t0)
-        return out
-
-    return wrapper
-
-
-class Phase:
-    """Accumulating named phase timers.
-
-    >>> phases = Phase()
-    >>> with phases("retrieval"): ...
-    >>> with phases("forward"): ...
-    >>> phases.summary()  # {'retrieval': {'total_s': ..., 'count': ...}, ...}
-    """
-
-    def __init__(self):
-        self.totals: dict[str, float] = collections.defaultdict(float)
-        self.counts: dict[str, int] = collections.defaultdict(int)
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> dict[str, dict]:
-        return {k: {"total_s": round(v, 4), "count": self.counts[k],
-                    "mean_ms": round(1e3 * v / max(self.counts[k], 1), 3)}
-                for k, v in self.totals.items()}
-
-    def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
+def span(name: str):
+    """A context manager around host code, recorded as ``name`` while a
+    profiler capture records on this thread (module docstring)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _sync(device) -> None:
@@ -114,8 +81,3 @@ def profile_trace(logdir: str, device=None):
         yield prof
     finally:
         stop_trace(prof, logdir, device)
-
-
-def annotate(name: str):
-    """Named region inside a trace."""
-    return torch.profiler.record_function(name)

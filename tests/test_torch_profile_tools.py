@@ -103,24 +103,59 @@ def test_summary_of_a_device_trace_ranks_kernels_and_classes():
 
 
 def test_timing_utilities(tmp_path):
-    phases = timing.Phase()
-    with phases("a"):
+    """``span`` is the shared no-op off the profiler and a named region of
+    the trace ``profile_trace`` writes while it records."""
+    off = timing.span("trainer.epoch")
+    assert off is timing.span("imputer.call")
+    with off:
         pass
-    with phases("a"):
-        pass
-    assert phases.summary()["a"]["count"] == 2
-    phases.reset()
-    assert phases.summary() == {}
-    calls = []
-
-    @timing.timer
-    def f(x):
-        calls.append(x)
-        return x + 1
-
-    assert f(1) == 2 and calls == [1] and f.__name__ == "f"
-    with timing.profile_trace(str(tmp_path / "t"), device="cpu"):
-        with timing.annotate("my_region"):
+    with timing.profile_trace(str(tmp_path / "t"), device="cpu") as prof:
+        assert timing.span("my.region") is not off
+        with timing.span("my.region"):
             torch.ones(3).sum()
+    assert prof is not None
     (path,) = glob.glob(str(tmp_path / "t" / "*.pt.trace.json"))
-    assert "my_region" in _trace_names(path)
+    assert "my.region" in _trace_names(path)
+    assert timing.span("my.region") is off
+
+
+def test_device_idle_by_program_span():
+    """The operator view: the device's idle holes over the traced range,
+    each instant given to the innermost program span on the launching
+    thread (the one with the most CUDA runtime calls), the rest to no
+    span; spans of another thread and other host events are not program
+    spans there."""
+    ev = [{"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "name": "k",
+           "ts": t, "dur": 10.0} for t in (0.0, 20.0, 60.0)]
+    host = [("trainer.epoch", 0.0, 55.0), ("trainer.window_context", 12.0,
+                                           4.0),
+            ("dispatch.chunk", 16.0, 9.0), ("trainer.batch_wait", 35.0, 5.0),
+            ("trainer.batch_wait", 40.0, 5.0), ("aten::mm", 30.0, 20.0)]
+    for name, ts, dur in host:
+        ev.append({"ph": "X", "cat": "user_annotation", "pid": 1, "tid": 2,
+                   "name": name, "ts": ts, "dur": dur})
+    ev += [{"ph": "X", "cat": "cuda_runtime", "pid": 1, "tid": 2,
+            "name": "cudaLaunchKernel", "ts": t, "dur": 1.0}
+           for t in (0.0, 19.0, 59.0)]
+    ev.append({"ph": "X", "cat": "user_annotation", "pid": 1, "tid": 3,
+               "name": "imputer.call", "ts": 0.0, "dur": 70.0})
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+              if e["cat"] == "kernel"]
+    spans = [(ts, ts + dur, n) for n, ts, dur in host if "." in n]
+    got = summarize_trace.idle_by_span(device, spans, 0.0, 70.0)
+    # holes 10-20 and 30-60: epoch 10-12, 30-35 and 45-55, context 12-16,
+    # chunk 16-20 (it ends inside the busy 20-30), the waits 35-45 back to
+    # back, no span 55-60
+    assert got == {"trainer.epoch": 2.0 + 5.0 + 10.0,
+                   "trainer.window_context": 4.0, "dispatch.chunk": 4.0,
+                   "trainer.batch_wait": 10.0,
+                   summarize_trace.NO_SPAN: 5.0}
+    assert sum(got.values()) == 40.0
+    text = summarize_trace.idle_table(ev)
+    lines = text.splitlines()
+    assert "device idle by program span: 0.040 ms of 0.070 ms (57.14%)" \
+        in text
+    assert lines[3].startswith("trainer.epoch") and "24.286" in lines[3]
+    assert "imputer.call" not in text
+    assert summarize_trace.idle_table(
+        [e for e in ev if e["cat"] != "kernel"]) == ""

@@ -461,6 +461,52 @@ def test_http_concurrent_requests_merge(setup, tmp_path):
                 np.load(tmp_path / f"solo{i}.{f}.npy"))
 
 
+def test_batching_service_counts_waits_linger_and_padding(setup):
+    """Two requests of one pattern (3 and 2 samples) merge while the
+    scheduler lingers; one of another pattern (4 samples), enqueued last,
+    ends that linger, then lingers the whole ``max_wait_ms`` alone for a
+    partner and runs alone.  The counters: two imputations, two requests
+    merged, the lone request's full linger inside both the lingers and
+    its queue wait, and the batch rows beyond the samples at batch 8: 3
+    and 4 a window.  ``/health`` returns them."""
+    import time
+
+    s = setup
+    rng = np.random.default_rng(31)
+    base = _drop(s["tb"].train, rng.random(s["tb"].train.n_variants) > 0.4)
+    other = _samples(_drop(s["tb"].train,
+                           rng.random(s["tb"].train.n_variants) > 0.6),
+                     slice(4, 8))
+    parts = [_samples(base, slice(0, 3)), _samples(base, slice(3, 5))]
+    svc = _service(s, BatchingImputationService)
+    svc.max_wait_ms = 2000.0
+    server = make_server(svc)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    threads = [threading.Thread(target=svc.handle_target, args=(t,))
+               for t in (*parts, other)]
+    try:
+        for t in threads:            # enqueued in this order
+            t.start()
+            time.sleep(0.2)
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        status, health = _http(server.server_address[1])("GET", "/health")
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    stats = svc.stats
+    assert status == 200 and health["stats"] == stats
+    n_win = len(svc.imputer.windows)
+    assert stats["impute_calls"] == 2 and stats["merged_requests"] == 2
+    assert stats["rows_padded"] == n_win * (3 + 4)
+    alone = 0.95 * svc.max_wait_ms / 1e3
+    assert stats["linger_s"] > alone
+    assert stats["queue_wait_max_s"] > alone
+    assert stats["queue_wait_s"] > stats["queue_wait_max_s"]
+
+
 def test_no_rag_imputer_matches_jax():
     """rag_mode="none": no window context, the plain BERT forward."""
     jb, jm, embed_fn, params, tm = _models(JBERT, BERT)
