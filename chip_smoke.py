@@ -208,6 +208,11 @@ HDS_TOL = 5e-4 + 1e-6
 REMAT_BATCHES = (128, 160, 192)
 REMAT_DIR = "runs/chip_smoke_remat"
 FUSION_TOL = 1e-4
+# The LayerNorm kernels (phase_layer_norm) at the training shape: 48
+# sequences of 1030 tokens, the blocks' width and the FFN's.
+LN_ROWS = 48 * 1030
+LN_DIMS = (384, 1536)
+LN_EPS = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -218,6 +223,20 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+LN_KEYS = ("layer_norm", "layer_norm_bwd")
+
+
+def ln_want(counts: dict, forward: bool, backward: bool = False) -> dict:
+    """The LayerNorm kernels' entries of a path's expected launch counts:
+    some forward launches where the path runs a bf16 model, some backward
+    ones where it trains one, none otherwise.  A path's exact number (one
+    a bf16 LayerNorm call) is held by tests/test_torch_cuda.py for a
+    micro-step and by phase_layer_norm for a call."""
+    return {key: counts[key] if (counts[key] > 0) == some
+            else ("some" if some else 0)
+            for key, some in zip(LN_KEYS, (forward, backward))}
 
 
 def card_line() -> str:
@@ -377,6 +396,156 @@ def phase_attention_bwd(gen) -> dict:
             "replaces": "rag_snvbert_tpu/models/transformer.py:141",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def _layer_norm_at(rows: int, d: int, gen) -> tuple[dict, dict]:
+    """The LayerNorm kernels at rows x d against the plain chain (held to
+    tests/test_torch_cuda.py's bounds), a rerun, and their times beside
+    the byte bound, the plain chain and F.layer_norm on bf16 tensors."""
+    import torch.nn.functional as F
+
+    from rag_snvbert_tpu_torch.ops.layer_norm import (
+        layer_norm_bwd, layer_norm_bwd_plain, layer_norm_fwd,
+        layer_norm_plain)
+
+    x = (torch.randn(rows, d, generator=gen, device="cuda") * 3 + 0.5).to(
+        torch.bfloat16)
+    w = torch.randn(d, generator=gen, device="cuda") * 0.2 + 1
+    b = torch.randn(d, generator=gen, device="cuda") * 0.1
+    dy = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+    y, mean, rstd = layer_norm_fwd(x, w, b, LN_EPS)
+    dx, dg, db = layer_norm_bwd(dy, x, mean, rstd, w)
+    torch.cuda.synchronize()
+    ref = layer_norm_plain(x, w, b, LN_EPS).float()
+    rdx, rdg, rdb = layer_norm_bwd_plain(dy, x, w, b, LN_EPS)
+    rdx = rdx.float()
+    y_err = (y.float() - ref).abs().max().item()
+    dx_err = (dx.float() - rdx).abs().max().item()
+    ok = bool(((y.float() - ref).abs() <= 2 ** -7 * ref.abs() + 1e-4).all()
+              and ((dx.float() - rdx).abs() <= 2 ** -7 * rdx.abs()
+                   + 1e-4 * rdx.abs().max()).all())
+    xhat = (x.float() - mean[:, None]) * rstd[:, None]
+    sums = []
+    for got, want, terms in ((dg, rdg, dy.float() * xhat),
+                             (db, rdb, dy.float())):
+        tol = 2e-5 * terms.abs().sum(0) + 1e-6
+        sums.append(((got - want).abs() / tol).max().item())
+        del terms
+    print(f"layer_norm [{rows}, {d}] bf16: y max_abs_err {y_err:.3e}, dx "
+          f"{dx_err:.3e} against the plain chain; dgamma / dbeta at "
+          f"{sums[0]:.3f} / {sums[1]:.3f} of their bound (2e-5 of the "
+          f"terms' magnitudes)")
+    check(ok and max(sums) <= 1.0, f"layer_norm kernels at [{rows}, {d}] "
+          "disagree with the plain chain")
+    again = (*layer_norm_fwd(x, w, b, LN_EPS),
+             *layer_norm_bwd(dy, x, mean, rstd, w))
+    check(all(torch.equal(a, c) for a, c in zip(
+        (y, mean, rstd, dx, dg, db), again)),
+          f"layer_norm runs at [{rows}, {d}] are not bit-identical")
+    del ref, rdx, again, xhat
+
+    def device_ms(fn):
+        # every kernel the call launches, from the profiler: at 384 wide a
+        # call's host time exceeds its device time, so events around
+        # back-to-back calls would time the host
+        return sum(kernel_ms(fn, 20).values())
+
+    fwd = device_ms(lambda: layer_norm_fwd(x, w, b, LN_EPS))
+    fwd_serve = device_ms(lambda: layer_norm_fwd(x, w, b, LN_EPS,
+                                                 with_stats=False))
+    split = kernel_ms(lambda: layer_norm_bwd(dy, x, mean, rstd, w), 20)
+    bwd = sum(split.values())
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    y_plain = layer_norm_plain(*leaves, LN_EPS)
+    plain_fwd = device_ms(lambda: layer_norm_plain(x, w, b, LN_EPS))
+    plain_bwd = device_ms(lambda: torch.autograd.grad(
+        y_plain, leaves, dy, retain_graph=True))
+    del y_plain
+    lib = [x.detach().requires_grad_(), w.bfloat16().requires_grad_(),
+           b.bfloat16().requires_grad_()]
+    y_lib = F.layer_norm(lib[0], (d,), lib[1], lib[2], LN_EPS)
+    lib_fwd = device_ms(lambda: F.layer_norm(x, (d,), lib[1].detach(),
+                                             lib[2].detach(), LN_EPS))
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
+        y_lib, lib, dy, retain_graph=True))
+    del y_lib
+    # each input byte read once, each output byte written once: x in and y
+    # out (and the statistics under autograd); dy and x in, dx out, the
+    # statistics and gamma in, dgamma and dbeta out
+    fwd_b = bound(rows * d * 4 + 2 * d * 4 + rows * 8, 0)[0]
+    serve_b = bound(rows * d * 4 + 2 * d * 4, 0)[0]
+    bwd_b = bound(rows * d * 6 + rows * 8 + 3 * d * 4, 0)[0]
+    print(f"layer_norm [{rows}, {d}] (device ms of every kernel a call "
+          f"launches): forward kernel_ms {fwd:.4f} "
+          f"({fwd_b / fwd:.1%} of bound_ms {fwd_b:.4f}, bytes) plain_ms "
+          f"{plain_fwd:.4f} library_ms {lib_fwd:.4f} (F.layer_norm, bf16); "
+          f"without statistics {fwd_serve:.4f} ({serve_b / fwd_serve:.1%} "
+          f"of {serve_b:.4f}); backward kernel_ms {bwd:.4f} ({bwd_b / bwd:.1%}"
+          f" of bound_ms {bwd_b:.4f}, bytes) plain_ms {plain_bwd:.4f} "
+          f"library_ms {lib_bwd:.4f} (F.layer_norm's backward, bf16); "
+          f"backward by kernel {split}")
+    shape = [rows, d]
+    return ({"shape": shape, "max_abs_err": y_err, "ms": fwd,
+             "ms_without_stats": fwd_serve, "plain_ms": plain_fwd,
+             "bound_ms": fwd_b, "library_ms": lib_fwd},
+            {"shape": shape, "max_abs_err": dx_err, "ms": bwd,
+             "plain_ms": plain_bwd, "bound_ms": bwd_b, "library_ms": lib_bwd,
+             "by_kernel": split})
+
+
+def _layer_norm_host_us() -> dict[str, float]:
+    """Host microseconds a call of a 384-wide bf16 LayerNorm module at 64
+    rows (device work far below the host's), through the kernels and
+    through the plain chain the module ran before them, without and with
+    a gradient to record."""
+    from rag_snvbert_tpu_torch.models.layers import LayerNorm
+    from rag_snvbert_tpu_torch.ops.layer_norm import layer_norm_plain
+
+    mod = LayerNorm(384, torch.bfloat16).cuda()
+    x = torch.randn(64, 384, device="cuda").to(torch.bfloat16)
+    xg = x.clone().requires_grad_()
+    calls = {
+        "kernel_no_grad": lambda: mod(x),
+        "plain_no_grad": lambda: layer_norm_plain(x, mod.weight, mod.bias,
+                                                  mod.eps),
+        "kernel_grad": lambda: mod(xg),
+        "plain_grad": lambda: layer_norm_plain(xg, mod.weight, mod.bias,
+                                               mod.eps)}
+    out = {}
+    for name, fn in calls.items():
+        with torch.set_grad_enabled(not name.endswith("no_grad")):
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t) / 2000 * 1e6
+    return out
+
+
+def phase_layer_norm(gen) -> list[dict]:
+    """The bf16 LayerNorm kernels at the training shape: 48 sequences of
+    1030 tokens, the blocks' width 384 and the FFN's 1536; and a call's
+    host time."""
+    per = [_layer_norm_at(LN_ROWS, d, gen) for d in LN_DIMS]
+    host = _layer_norm_host_us()
+    print("layer_norm host us a call (384 wide, 64 rows): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    entries = []
+    for i, name in enumerate(("layer_norm", "layer_norm_bwd")):
+        main = per[-1][i]              # the widest row: the largest share
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "rag_snvbert_tpu_torch/csrc/layer_norm.cu",
+            "replaces": "none (XLA's fused LayerNorm on the TPU)",
+            "max_abs_err": max(p[i]["max_abs_err"] for p in per),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["library_ms"],
+            "by_shape": [p[i] for p in per], "host_us": host})
+    return entries
 
 
 def _tie_aware(name, vals, ids, ref_vals, ref_ids, scale, dist_of) -> float:
@@ -823,8 +992,9 @@ def phase_index(gen) -> dict[str, int]:
           f"to packed L2 {same}")
     check(same, "HammingIndex disagrees with its direct path or with L2")
     del bits
-    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
-            "l2_topk_rf": 2 * 4, "l2_topk_float": 2 * 4}
+    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+            "layer_norm_bwd": 0, "l2_topk": 0, "l2_topk_rf": 2 * 4,
+            "l2_topk_float": 2 * 4}
     print(f"index launches {counts} (expected {want}: search, masked "
           f"search and the round trip's two searches, two storages each)")
     check(counts == want, "the index path did not go through its kernels")
@@ -1052,8 +1222,9 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * batches * len(targets),
-            "attention_bwd": 0, "l2_topk": batches * len(targets),
-            "l2_topk_rf": 0, "l2_topk_float": 0}
+            "attention_bwd": 0, **ln_want(counts, True),
+            "l2_topk": batches * len(targets), "l2_topk_rf": 0,
+            "l2_topk_float": 0}
     print(f"launches {counts} (expected {want}: {n_win} windows x "
           f"{batches // n_win} batches x {len(targets)} requests); peak "
           f"device memory {peak_gb:.2f} GB")
@@ -1075,7 +1246,9 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
               "known sites did not pass through")
 
     # Window 0 against the plain path on the card: same weights, attention
-    # in plain torch math and the plain search (no kernel launches).
+    # in plain torch math and the plain search (no attention or search
+    # launches; its bf16 LayerNorms run the LayerNorm kernels, as the
+    # kernel path's do).
     plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         m, flash_attention=False))
     plain_model = build_model(plain_cfg, bundle.vocab.size, seed=0)
@@ -1088,7 +1261,11 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
     plain = Imputer(plain_model, _drop(bundle.ref, sites), bundle.freq,
                     batch_size=32, use_kernel=False).impute(
         _drop(target, sites[keep]))
-    check(ops.launch_counts() == before, "the plain path launched a kernel")
+    after = ops.launch_counts()
+    check(all(after[k] == before[k] for k in after if k not in LN_KEYS)
+          and after["layer_norm"] > before["layer_norm"],
+          f"the plain path launched an attention or search kernel, or no "
+          f"LayerNorm kernel: {before} -> {after}")
     miss = results[0].imputed_flag[s:e]
     diffs = [np.abs(getattr(results[0], f)[s:e][miss]
                     - getattr(plain, f)[miss])
@@ -1266,7 +1443,8 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     by_verb["train"] = ops.launch_counts()
     micro = n_win * -(-bundle.train.n_samples // 24)
     want = {"attention": m.n_layers * micro, "attention_bwd": m.n_layers
-            * micro, "l2_topk": micro, "l2_topk_rf": 0, "l2_topk_float": 0}
+            * micro, **ln_want(by_verb["train"], True, True),
+            "l2_topk": micro, "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"train: {train_s:.2f} s for {micro} micro-steps and a "
           f"checkpoint; launches {by_verb['train']} (expected {want}); "
           f"{card}")
@@ -1282,7 +1460,8 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     infer_s = time.perf_counter() - t
     by_verb["infer"] = ops.launch_counts()
     want = {"attention": m.n_layers * batches, "attention_bwd": 0,
-            "l2_topk": batches, "l2_topk_rf": 0, "l2_topk_float": 0}
+            **ln_want(by_verb["infer"], True), "l2_topk": batches,
+            "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"infer: {infer_s:.2f} s (model load, VCF parse, imputation and "
           f"VCF write); launches {by_verb['infer']} (expected {want}); "
           f"{card}")
@@ -1347,7 +1526,8 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     tail = json.loads(proc.stderr.strip().splitlines()[-1])
     by_verb["serve"] = tail["launches"]
     want = {"attention": 2 * m.n_layers * batches, "attention_bwd": 0,
-            "l2_topk": 2 * batches, "l2_topk_rf": 0, "l2_topk_float": 0}
+            **ln_want(by_verb["serve"], True), "l2_topk": 2 * batches,
+            "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"serve (JSON lines, a subprocess): {serve_s:.2f} s in all; ready "
           f"line {lines[0]}; responses {lines[1:]}; {tail}; request "
           f"seconds {[r.get('seconds') for r in lines[1:]]}; {card}")
@@ -1444,8 +1624,9 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     check(worst == 0.0, "merged results differ from solo imputation")
     h = by_verb["http"]
     check(h["l2_topk"] > 0 and h["attention"] == m.n_layers * h["l2_topk"]
-          and h["attention_bwd"] == 0, "HTTP serving did not go through "
-          "the attention and l2_topk kernels")
+          and h["attention_bwd"] == 0 and h["layer_norm"] > 0
+          and h["layer_norm_bwd"] == 0, "HTTP serving did not go through "
+          "the attention, LayerNorm and l2_topk kernels")
     return {k: sum(c.get(k, 0) for c in by_verb.values())
             for k in by_verb["train"]}
 
@@ -1600,8 +1781,9 @@ def phase_interop(profile: bool = False) -> dict[str, int]:
     finally:
         retrieval.search = real_search
     counts["infer"] = ops.launch_counts()
-    want = {"attention": 0, "attention_bwd": 0, "l2_topk": batches,
-            "l2_topk_rf": 0, "l2_topk_float": 0}
+    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+            "layer_norm_bwd": 0, "l2_topk": batches, "l2_topk_rf": 0,
+            "l2_topk_float": 0}
     st = {key: [s[key] for s in searches] for key in searches[0]}
     print(f"infer of the converted model: {infer_s:.2f} s in all (model "
           f"build, checkpoint load, VCF parse, imputation, VCF write); "
@@ -1698,8 +1880,9 @@ def phase_interop(profile: bool = False) -> dict[str, int]:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
     counts["train"] = ops.launch_counts()
-    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 2,
-            "l2_topk_rf": 0, "l2_topk_float": 0}
+    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+            "layer_norm_bwd": 0, "l2_topk": 2, "l2_topk_rf": 0,
+            "l2_topk_float": 0}
     state = torch.load(at("finetune/ckpt_ep0/state.pt"), weights_only=True)
     moved = [float((state["params"][k].cpu() - a[k]).abs().max())
              for k in a]
@@ -1748,7 +1931,8 @@ def phase_convergence(profile: bool = False) -> dict[str, int]:
     micro = CONV_WINDOWS * -(-first["train_samples"] // cfg.batch_size)
     val = CONV_WINDOWS * -(-first["val_samples"] // 48)   # TrainerConfig's
     want = {"attention": 2 * m * (micro + val), "attention_bwd": 2 * m * micro,
-            "l2_topk": 2 * (micro + val), "l2_topk_rf": 0, "l2_topk_float": 0}
+            **ln_want(counts, True, True), "l2_topk": 2 * (micro + val),
+            "l2_topk_rf": 0, "l2_topk_float": 0}
     with open(os.path.join(CONV_DIR, "metrics.csv")) as f:
         rows = list(csv.DictReader(f))
     print(f"run_convergence: epoch 0 with --profile {first_s:.1f} s, "
@@ -1842,6 +2026,7 @@ def phase_ab_compat(profile: bool = False) -> dict[str, int]:
         kernels = name != "compat"
         want[name] = {"attention": m * (micro + val) * kernels,
                       "attention_bwd": m * micro * kernels,
+                      **ln_want(per[name], True, True),
                       "l2_topk": micro + val, "l2_topk_rf": 0,
                       "l2_topk_float": 0}
         print(f"ab_compat {name}: {seconds[name]:.1f} s for one epoch "
@@ -1906,7 +2091,8 @@ def phase_sweep_topk(profile: bool = False) -> dict[str, int]:
     counts = ops.launch_counts()
     # a dtype: one pass of the default plan (what every plan is held to),
     # then each plan one pass to check it and two timed passes
-    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
+    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+            "layer_norm_bwd": 0, "l2_topk": 0,
             "l2_topk_rf": SWEEP_CHUNKS * (2 + 3 * n_plans),
             "l2_topk_float": 0}
     print(f"sweep_topk launches {counts} (expected {want})")
@@ -2035,7 +2221,7 @@ def phase_int8(profile: bool = False) -> dict[str, int]:
             counts = ops.launch_counts()
             want = {**{k: 0 for k in counts},
                     "attention": m.n_layers * 2 * batches,
-                    "l2_topk": 2 * batches}
+                    **ln_want(counts, True), "l2_topk": 2 * batches}
             check(counts == want and Int8Dense.calls
                   == per_forward * 2 * batches,
                   f"int8 serving launches {counts} (expected {want}), "
@@ -2115,7 +2301,7 @@ def phase_int8(profile: bool = False) -> dict[str, int]:
             want = {**{k: 0 for k in train},
                     "attention": m.n_layers * (steps + 2),
                     "attention_bwd": m.n_layers * steps,
-                    "l2_topk": steps + 2}
+                    **ln_want(train, True, True), "l2_topk": steps + 2}
             check(train == want and Int8Dense.calls
                   == per_forward * (steps + 2),
                   f"int8 training launches {train} (expected {want}), "
@@ -2283,8 +2469,8 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     peak_fit = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * (micro + val_steps),
             "attention_bwd": m.n_layers * micro,
-            "l2_topk": micro + val_steps, "l2_topk_rf": 0,
-            "l2_topk_float": 0}
+            **ln_want(counts, True, True), "l2_topk": micro + val_steps,
+            "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"fit: {fit_s:.2f} s for {micro} micro-steps ({opt.count} updates) "
           f"+ {val_steps} validation steps + a checkpoint; launches {counts} "
           f"(expected {want}); peak device memory {peak_fit:.2f} GB")
@@ -2376,7 +2562,8 @@ def phase_training(profile: bool = False) -> dict[str, int]:
 
     # (iii) one batch, dropout off: the kernel path against the plain path
     # on the card (same weights: attention in plain torch math with float32
-    # scores, the plain search; no kernel launches).
+    # scores, the plain search; no attention or search launches).  Both
+    # paths run the bf16 LayerNorm kernels.
     state = trainer.model.state_dict()
     del trainer, opt
     torch.cuda.empty_cache()
@@ -2397,15 +2584,19 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     k_loss, k_grads = _grads_of_one_batch(model, batch, ctx_of, True)
     one = ops.launch_counts()
     check(one == {"attention": m.n_layers, "attention_bwd": m.n_layers,
-                  "l2_topk": 1, "l2_topk_rf": 0, "l2_topk_float": 0},
+                  **ln_want(one, True, True), "l2_topk": 1, "l2_topk_rf": 0,
+                  "l2_topk_float": 0},
           f"kernel path launches {one}")
     del model
     model = build_model(plain_cfg, bundle.vocab.size, seed=0)
     model.load_state_dict(state)
     ops.reset_launches()
     p_loss, p_grads = _grads_of_one_batch(model, batch, ctx_of, False)
-    check(not any(ops.launch_counts().values()),
-          "the plain path launched a kernel")
+    plain = ops.launch_counts()
+    check(not any(v for k, v in plain.items() if k not in LN_KEYS)
+          and plain["layer_norm"] == one["layer_norm"]
+          and plain["layer_norm_bwd"] == one["layer_norm_bwd"],
+          f"the plain path launched an attention or search kernel: {plain}")
     total = torch.sqrt(sum((g.double() ** 2).sum()
                            for g in p_grads.values())).item()
     rels = {}
@@ -2482,7 +2673,8 @@ def phase_token_serving(profile: bool = False) -> dict[str, int]:
         print(f"token request {i}: {sec:.3f} s, {n_imp} imputed genotypes, "
               f"{n_imp / sec:.0f} imputed genotypes/s")
     counts = ops.launch_counts()
-    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
+    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+            "layer_norm_bwd": 0, "l2_topk": 0,
             "l2_topk_rf": batches * len(targets), "l2_topk_float": 0}
     print(f"token launches {counts} (expected {want}: {n_win} windows x "
           f"{batches // n_win} batches x {len(targets)} requests); peak "
@@ -2596,7 +2788,8 @@ def phase_token_training(profile: bool = False) -> dict[str, int]:
     fit_s = time.perf_counter() - t
     counts = ops.launch_counts()
     opt.step = plain_step
-    want = {"attention": 0, "attention_bwd": 0, "l2_topk": 0,
+    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+            "layer_norm_bwd": 0, "l2_topk": 0,
             "l2_topk_rf": micro + val_steps, "l2_topk_float": 0}
     print(f"token fit (v17_token_rag, batch {tcfg.batch_size}, accumulation "
           f"{tcfg.grad_accum_steps}): {fit_s:.2f} s for {micro} micro-steps "
@@ -3615,7 +3808,8 @@ def _add_tp2(total: dict, target, ref, ref_sec: float, band) -> dict:
         for name in cfgs:
             part = r["serve", name]
             want = {"attention": serve_layers * batches, "attention_bwd": 0,
-                    "l2_topk": batches, "l2_topk_rf": 0, "l2_topk_float": 0}
+                    **ln_want(part["launches"], True), "l2_topk": batches,
+                    "l2_topk_rf": 0, "l2_topk_float": 0}
             check(part["heads"] == (2, want_split)
                   and part["launches"] == want,
                   f"tp2 {name} serving rank {rank}: heads "
@@ -3628,6 +3822,7 @@ def _add_tp2(total: dict, target, ref, ref_sec: float, band) -> dict:
             part = r["fit", label]
             want = {"attention": TP2_TRAIN_LAYERS * micro,
                     "attention_bwd": TP2_TRAIN_LAYERS * micro,
+                    **ln_want(part["launches"], True, True),
                     "l2_topk": micro, "l2_topk_rf": 0, "l2_topk_float": 0}
             check(part["launches"] == want,
                   f"tp2 {label} fit rank {rank} launches "
@@ -3793,6 +3988,7 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
                 "l2_topk_rf": 0, "l2_topk_float": 0}
     for r in runs:
         _add(total, r["launches"])
+        per_rank.update(ln_want(r["launches"], True, True))
         check(r["shard_ctx"] and r["launches"] == per_rank,
               f"dp2 x idx2 rank launches {r['launches']}, want {per_rank}")
         check(not fit_failures(r["cmp"]),
@@ -3869,6 +4065,7 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
                 "l2_topk": batches * 2, "l2_topk_rf": 0, "l2_topk_float": 0}
     for r in runs:
         _add(total, r["launches"])
+        per_rank.update(ln_want(r["launches"], True))
         check(r["heads"] == 1 and r["launches"] == per_rank,
               f"tp3 rank: heads {r['heads']}, launches {r['launches']}")
     check(all(r.get("followed", 2) == 2 for r in runs),
@@ -3906,6 +4103,7 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
                 "l2_topk_float": 2 * 2 * 2}
     for r in runs:
         _add(total, r["launches"])
+        per_rank.update(ln_want(r["launches"], True))
         check(r["launches"] == per_rank,
               f"dp2/index rank launches {r['launches']}, want {per_rank}")
     mean_d, max_d = band(runs[0]["infer"], refs[0])
@@ -4005,8 +4203,9 @@ def phase_quality_ckpt(profile: bool = False) -> dict[str, int]:
     rare_f1, common_f1 = (f1(calls[:, s], truth[:, s]) for s in (rare,
                                                                  ~rare))
     st = {key: [s[key] for s in searches] for key in searches[0]}
-    want = {"attention": 0, "attention_bwd": 0, "l2_topk": len(searches),
-            "l2_topk_rf": 0, "l2_topk_float": 0}
+    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+            "layer_norm_bwd": 0, "l2_topk": len(searches), "l2_topk_rf": 0,
+            "l2_topk_float": 0}
     print(f"stored trained checkpoint on the card: accuracy {acc:.4f} "
           f"(prior {prior_acc:.4f}), rare F1 {rare_f1:.4f}, common F1 "
           f"{common_f1:.4f}; {len(searches)} l2_topk searches of "
@@ -4121,6 +4320,8 @@ def main() -> None:
     kernels = [phase_attention(gen)]
     torch.cuda.empty_cache()
     kernels.append(phase_attention_bwd(gen))
+    torch.cuda.empty_cache()
+    kernels.extend(phase_layer_norm(gen))
     torch.cuda.empty_cache()
     kernels.append(phase_l2(gen))
     torch.cuda.empty_cache()

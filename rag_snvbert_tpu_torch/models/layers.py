@@ -17,6 +17,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..ops.layer_norm import layer_norm, layer_norm_plain
+
 
 def _out_dtype(x: torch.Tensor, param: torch.Tensor,
                dtype: torch.dtype | None) -> torch.dtype:
@@ -75,7 +77,12 @@ class DenseGeneral(nn.Module):
 
 class LayerNorm(nn.Module):
     """``flax.linen.LayerNorm``: eps 1e-6, statistics in float32, output in
-    ``dtype`` (``None``: promotion of input and float32)."""
+    ``dtype`` (``None``: promotion of input and float32).
+
+    A bf16 CUDA input normalised into bf16 outside tensor parallelism goes
+    to the LayerNorm kernels (``ops/layer_norm.py``); everything else
+    (float32, the CPU, a tensor-parallel slice) to PyTorch's float32
+    LayerNorm, cast to ``dtype``."""
 
     def __init__(self, dims: int, dtype: torch.dtype | None = None,
                  eps: float = 1e-6):
@@ -91,21 +98,23 @@ class LayerNorm(nn.Module):
     tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _out_dtype(x, self.weight, self.compute_dtype)
         if self.tp_group is None:
-            y = F.layer_norm(x.float(), self.weight.shape, self.weight,
-                             self.bias, self.eps)
-        else:
-            from ..parallel.comm import all_reduce_sum
+            if x.is_cuda and x.dtype == dt == torch.bfloat16:
+                return layer_norm(x.contiguous(), self.weight, self.bias,
+                                  self.eps)
+            return layer_norm_plain(x, self.weight, self.bias, self.eps, dt)
+        from ..parallel.comm import all_reduce_sum
 
-            xf = x.float()
-            n = self.weight.numel() * torch.distributed.get_world_size(
-                self.tp_group)
-            mean = all_reduce_sum(xf.sum(-1, keepdim=True), self.tp_group) / n
-            xc = xf - mean
-            var = all_reduce_sum((xc * xc).sum(-1, keepdim=True),
-                                 self.tp_group) / n
-            y = xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
-        return y.to(_out_dtype(x, self.weight, self.compute_dtype))
+        xf = x.float()
+        n = self.weight.numel() * torch.distributed.get_world_size(
+            self.tp_group)
+        mean = all_reduce_sum(xf.sum(-1, keepdim=True), self.tp_group) / n
+        xc = xf - mean
+        var = all_reduce_sum((xc * xc).sum(-1, keepdim=True),
+                             self.tp_group) / n
+        y = xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(dt)
 
 
 def column_input(x: torch.Tensor, layer: Dense, group) -> torch.Tensor:

@@ -2,7 +2,8 @@
 versions.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``attention.launches``, ``attention_bwd.launches``, ``l2_topk.launches``,
+(``attention.launches``, ``attention_bwd.launches``,
+``layer_norm.launches``, ``layer_norm_bwd.launches``, ``l2_topk.launches``,
 ``l2_topk_rf.launches``, ``l2_topk_float.launches``,
 ``int8_probe.launches``, ``int8_probe.pack_int4.launches``), so a run
 can show that the main path went through the kernels.  ``launch_counts()``
@@ -12,12 +13,14 @@ adds the int8 probe and its int4 pack, which only the probe tools
 """
 
 from .attention import attention, attention_bwd
+from .layer_norm import layer_norm, layer_norm_bwd
 from .l2_topk import l2_topk
 from .l2_topk_float import l2_topk_float
 from . import int8_probe as _int8_probe   # ops.int8_probe: the module
 from .l2_topk_rf import l2_topk_rf
 
 WRAPPERS = {"attention": attention, "attention_bwd": attention_bwd,
+            "layer_norm": layer_norm, "layer_norm_bwd": layer_norm_bwd,
             "l2_topk": l2_topk, "l2_topk_rf": l2_topk_rf,
             "l2_topk_float": l2_topk_float}
 TOOL_WRAPPERS = {"int8_probe": _int8_probe.int8_probe,

@@ -21,6 +21,9 @@ from rag_snvbert_tpu_torch.ops.attention import (
     attention, attention_bwd, attention_bwd_plain, attention_fwd,
     attention_fwd_plain, attention_plain)
 from rag_snvbert_tpu_torch.ops.l2_topk import l2_topk, l2_topk_plain
+from rag_snvbert_tpu_torch.ops.layer_norm import (
+    layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_fwd,
+    layer_norm_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -158,6 +161,7 @@ def test_attention_is_differentiable_through_the_kernels(cuda):
     assert out.grad_fn is not None
     out.float().square().sum().backward()
     assert ops.launch_counts() == {"attention": 1, "attention_bwd": 1,
+                                   "layer_norm": 0, "layer_norm_bwd": 0,
                                    "l2_topk": 0, "l2_topk_rf": 0,
                                    "l2_topk_float": 0}
     qp, kp, vp = (x.detach().float().requires_grad_() for x in (q, k, v))
@@ -293,7 +297,12 @@ def test_small_model_serves_on_the_card_like_on_the_cpu(cuda):
     ops.reset_launches()
     on_card = Imputer(build_model(cfg, b.vocab.size, seed=1), b.ref, b.freq,
                       **kw).impute(target)
+    # bf16 LayerNorms a window: the context's AF embedding, then the
+    # forward's 3 a block, the AF embedding twice (target and reference
+    # streams), the embedding fusion, the RAG fusion and its AF interaction
     assert ops.launch_counts() == {"attention": 2 * 2, "attention_bwd": 0,
+                                   "layer_norm": 2 * (1 + 3 * 2 + 5),
+                                   "layer_norm_bwd": 0,
                                    "l2_topk": 2, "l2_topk_rf": 0,
                                    "l2_topk_float": 0}
     on_cpu = Imputer(build_model(cfg, b.vocab.size, device="cpu", seed=1),
@@ -340,9 +349,12 @@ def test_small_model_trains_on_the_card_like_on_the_cpu(cuda):
         stats = step.train_step(model, opt, batch, ctx, step.StepConfig())
         if dev == "cuda":
             torch.cuda.synchronize()
+            # every bf16 LayerNorm of the micro-step forward and back
             assert ops.launch_counts() == {"attention": 2,
-                                           "attention_bwd": 2, "l2_topk": 1,
-                                           "l2_topk_rf": 0,
+                                           "attention_bwd": 2,
+                                           "layer_norm": 3 * 2 + 5,
+                                           "layer_norm_bwd": 3 * 2 + 5,
+                                           "l2_topk": 1, "l2_topk_rf": 0,
                                            "l2_topk_float": 0}
         results[dev] = (stats["loss"].item(), stats["grad_norm"].item(),
                         {n: p.detach().cpu()
@@ -631,8 +643,11 @@ def test_small_token_model_trains_on_the_card_like_on_the_cpu(cuda):
         segs = retrieval.retrieve_tokens(step.expand_packed(batch), ctx)
         if dev == "cuda":
             torch.cuda.synchronize()
+            # float32 LayerNorms only: the kernels take none
             assert ops.launch_counts() == {"attention": 0,
-                                           "attention_bwd": 0, "l2_topk": 0,
+                                           "attention_bwd": 0,
+                                           "layer_norm": 0,
+                                           "layer_norm_bwd": 0, "l2_topk": 0,
                                            "l2_topk_rf": 2,
                                            "l2_topk_float": 0}
         results[dev] = (stats["loss"].item(), stats["grad_norm"].item(),
@@ -1156,3 +1171,152 @@ def test_int8_dense_on_the_card_matches_the_cpu(cuda, shape, mode):
             assert torch.equal(a, c), i
         else:
             assert (a - c).abs().max() <= 2 ** -7 * c.abs().max(), i
+
+
+# LayerNorm (csrc/layer_norm.cu): the main path's widths at its 49,440 rows
+# (48 sequences x 1030) and a ragged count, and one width for each of the
+# kernel's twelve (threads a row, vectors a thread) instances.
+LN_EPS = 1e-6
+LN_SHAPES = [(49440, 384), (49440, 1536), (1037, 384), (1037, 1536),
+             (3, 64), (517, 64), (5, 8), (129, 128), (65, 192), (77, 256),
+             (40, 512), (50, 768), (301, 1000), (31, 2048), (33, 2056),
+             (9, 4096)]
+
+
+def _ln_inputs(rows, d, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(rows * 7 + d)
+    x = (torch.randn(rows, d, generator=gen, device=cuda) * 3 + 0.5).to(
+        torch.bfloat16)
+    w = torch.randn(d, generator=gen, device=cuda) * 0.2 + 1
+    b = torch.randn(d, generator=gen, device=cuda) * 0.1
+    dy = _bf16((rows, d), gen, cuda)
+    return x, w, b, dy
+
+
+@pytest.mark.parametrize("rows,d", LN_SHAPES)
+def test_layer_norm_kernels_match_plain(cuda, rows, d):
+    x, w, b, dy = _ln_inputs(rows, d, cuda)
+    before = ops.launch_counts()
+    y, mean, rstd = layer_norm_fwd(x, w, b, LN_EPS)
+    dx, dg, db = layer_norm_bwd(dy, x, mean, rstd, w)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["layer_norm"] == before["layer_norm"] + 1
+    assert after["layer_norm_bwd"] == before["layer_norm_bwd"] + 1
+    # float32 statistics against float64: a few float32 roundings of a sum
+    # of d terms
+    x64 = x.double()
+    m64 = x64.mean(-1)
+    r64 = (x64.var(-1, unbiased=False) + LN_EPS).rsqrt()
+    assert ((mean.double() - m64).abs()
+            <= 1e-5 * x64.abs().amax(-1)).all()
+    assert ((rstd.double() - r64).abs() <= 1e-5 * r64).all()
+    # y and dx: the same float32 formulas as the plain chain in another
+    # order, rounded once to bf16 on both sides: a bf16 rounding (2^-8
+    # relative, one flip of the last bit 2^-7) and float32 noise
+    ref = layer_norm_plain(x, w, b, LN_EPS).float()
+    assert ((y.float() - ref).abs() <= 2 ** -7 * ref.abs() + 1e-4).all()
+    rdx, rdg, rdb = layer_norm_bwd_plain(dy, x, w, b, LN_EPS)
+    rdx = rdx.float()
+    assert ((dx.float() - rdx).abs()
+            <= 2 ** -7 * rdx.abs() + 1e-4 * rdx.abs().max()).all()
+    # dgamma, dbeta: float32 sums over the rows in another order than the
+    # plain backward's, within 1e-5 of the sum of the terms' magnitudes
+    xhat = (x64 - m64[:, None]) * r64[:, None]
+    for got, want, terms in ((dg, rdg, dy.double() * xhat),
+                             (db, rdb, dy.double())):
+        tol = 1e-5 * terms.abs().sum(0) + 1e-6
+        assert ((got.double() - terms.sum(0)).abs() <= tol).all()
+        assert ((got.double() - want.double()).abs() <= 2 * tol).all()
+
+
+def test_layer_norm_kernel_runs_are_bit_identical(cuda):
+    x, w, b, dy = _ln_inputs(49440, 384, cuda)
+    first = layer_norm_fwd(x, w, b, LN_EPS)
+    grads = layer_norm_bwd(dy, x, first[1], first[2], w)
+    second = layer_norm_fwd(x, w, b, LN_EPS)
+    again = layer_norm_bwd(dy, x, first[1], first[2], w)
+    for a, c in zip((*first, *grads), (*second, *again)):
+        assert torch.equal(a, c)
+    # without statistics the output is the same
+    y, mean, rstd = layer_norm_fwd(x, w, b, LN_EPS, with_stats=False)
+    assert mean is None and rstd is None and torch.equal(y, first[0])
+
+
+def test_layer_norm_replays_in_a_cuda_graph_like_eager(cuda):
+    x, w, b, dy = _ln_inputs(1037, 1536, cuda)
+    x2, _, _, dy2 = _ln_inputs(1037, 1536, cuda)
+    x2, dy2 = x2.flip(0).contiguous(), dy2.flip(1).contiguous()
+    xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+
+    def run():
+        y = layer_norm(xg, wg, bg, LN_EPS)
+        return (y, *torch.autograd.grad(y, (xg, wg, bg), dy))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ops.launch_counts()
+    with torch.cuda.graph(graph):
+        captured = run()
+    after = ops.launch_counts()
+    assert after["layer_norm"] == before["layer_norm"] + 1
+    assert after["layer_norm_bwd"] == before["layer_norm_bwd"] + 1
+    with torch.no_grad():
+        xg.copy_(x2)
+        dy.copy_(dy2)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = run()
+    for a, c in zip(captured, eager):
+        assert torch.equal(a, c)
+
+
+def test_layer_norm_launches_in_a_tpu_default_micro_step(cuda):
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.data.pipeline import WindowDataset
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.models.layers import Dropout, LayerNorm
+    from rag_snvbert_tpu_torch.train import retrieval, step
+    from rag_snvbert_tpu_torch.train.schedule import make_optimizer
+
+    cfg = PRESETS["tpu_default"]
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, n_layers=2))
+    b = make_bundle(n_train_samples=8, n_ref_samples=24, n_sites=256,
+                    n_windows=2, seed=5)
+    ds = WindowDataset(b.train, b.panel, b.freq, b.window.window_info,
+                       b.vocab, ref_vcf=b.ref, seq_len=138)
+    meta = ds.windows[0]
+    np_batch = ds.make_batch(meta, np.arange(6), 1, 0, pad_to=8, packed=True)
+    toks, af, valid = ds.window_ref_tokens(meta, pad_haps_to=64)
+    model = build_model(cfg, b.vocab.size, seed=2)
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.rate = 0.0
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    ctx = retrieval.encode_window_refs(
+        model.embed, t(toks).long(), t(af),
+        t(ds.window_mask(meta, 1, 0)), valid=t(valid))
+    batch = {k: t(v) for k, v in np_batch.items()}
+    calls = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, LayerNorm):
+            mod.register_forward_hook(lambda m, i, o, name=name: calls.append(
+                (name, i[0].dtype == o.dtype == torch.bfloat16)))
+    ops.reset_launches()
+    opt = make_optimizer(model, 1e-3, 2e-3, 10)
+    step.train_step(model, opt, batch, ctx, step.StepConfig())
+    torch.cuda.synchronize()
+    # 3 a block, the AF embedding twice, the embedding fusion, the RAG
+    # fusion and its AF interaction; only the heads' stay float32
+    bf16 = sum(flag for _, flag in calls)
+    assert bf16 == 3 * 2 + 5
+    assert all(name.split(".")[0] in ("hap_classifier", "gt_classifier")
+               for name, flag in calls if not flag)
+    counts = ops.launch_counts()
+    assert counts["layer_norm"] == counts["layer_norm_bwd"] == bf16
