@@ -112,6 +112,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
 TF32_FLOP_PER_S = 495e12
+F32_FLOP_PER_S = 67e12          # float32 on the CUDA cores
 
 ATTN_SHAPE = (64, 3, 1030, 128)        # [2B, H, L, hd] at batch 32
 BWD_SHAPE = (48, 3, 1030, 128)         # [2B, H, L, hd] at training batch 24
@@ -213,6 +214,13 @@ FUSION_TOL = 1e-4
 LN_ROWS = 48 * 1030
 LN_DIMS = (384, 1536)
 LN_EPS = 1e-6
+# The float32 attention kernels (phase_attention_f32) at upstream V18's
+# training shape, batch 24 (48 sequences of 12 heads of 32), with the
+# attention dropout 0.1; tolerances of tests/test_torch_cuda.py (float32
+# sums of up to 1030 terms in other orders than the plain version's).
+F32_ATTN_SHAPE = (48, 12, 1030, 32)
+F32_ATTN_RATE = 0.1
+F32_ATTN_TOL = {"o": 1e-5, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
 
 
 def fail(msg: str) -> None:
@@ -268,8 +276,11 @@ def kernel_ms(fn, calls: int = 5) -> dict[str, float]:
     from torch.profiler import ProfilerActivity, profile
 
     def short(key: str) -> str:
-        m = re.search(r"(\w+)\(", key.replace("(anonymous namespace)::", ""))
-        return m.group(1) if m else key[:40]
+        # the kernel's name without "void ", namespaces, template
+        # arguments or parameters (two instances of a template sum)
+        key = re.sub(r"^void ", "", key).replace("(anonymous namespace)::",
+                                                  "")
+        return key.split("(")[0].split("<")[0].rsplit("::", 1)[-1][:60]
 
     fn()
     torch.cuda.synchronize()
@@ -277,9 +288,13 @@ def kernel_ms(fn, calls: int = 5) -> dict[str, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {short(e.key): e.self_device_time_total / 1e3 / calls
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = short(e.key)
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 \
+                / calls
+    return out
 
 
 def bound(bytes_moved: float, ops: float,
@@ -546,6 +561,120 @@ def phase_layer_norm(gen) -> list[dict]:
             "library_ms": main["library_ms"],
             "by_shape": [p[i] for p in per], "host_us": host})
     return entries
+
+
+def phase_attention_f32(gen) -> list[dict]:
+    """The float32 attention kernels with dropout at F32_ATTN_SHAPE against
+    their plain versions, a rerun, and their device times (every kernel a
+    call launches: the mask's packing with the forward, the row sums with
+    the backward) beside the bound, the plain versions, the einsum path
+    the model ran before them (with the same mask) and PyTorch's
+    memory-efficient ``scaled_dot_product_attention`` in float32 with
+    dropout 0.1 (a yardstick of time only: its dropout draws its own
+    mask)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from rag_snvbert_tpu_torch.ops.attention_f32 import (
+        attention_f32_bwd, attention_f32_bwd_plain, attention_f32_fwd,
+        attention_f32_fwd_plain)
+
+    b, h, l, hd = F32_ATTN_SHAPE
+    rate, scale = F32_ATTN_RATE, hd ** -0.5
+    q, k, v, do = (torch.randn(F32_ATTN_SHAPE, generator=gen, device="cuda")
+                   for _ in range(4))
+    keep = torch.rand(b, h, l, l, generator=gen, device="cuda") >= rate
+    out, lse, bits = attention_f32_fwd(q, k, v, scale, keep, rate)
+    grads = attention_f32_bwd(q, k, v, out, lse, do, scale, bits, rate)
+    torch.cuda.synchronize()
+    ref, ref_lse = attention_f32_fwd_plain(q, k, v, scale, keep, rate)
+    ref_grads = attention_f32_bwd_plain(q, k, v, ref, ref_lse, do, scale,
+                                        keep, rate)
+    errs, abs_errs = {}, {}
+    for name, got, want in zip(F32_ATTN_TOL, (out, lse, *grads),
+                               (ref, ref_lse, *ref_grads)):
+        abs_errs[name] = (got - want).abs().max().item()
+        errs[name] = abs_errs[name] / want.abs().max().item()
+    del ref, ref_lse, ref_grads
+    print(f"attention_f32 {list(F32_ATTN_SHAPE)} float32, dropout {rate}: "
+          f"largest error over the largest value against the plain "
+          f"versions {errs} (tol {F32_ATTN_TOL})")
+    check(all(errs[n] <= t for n, t in F32_ATTN_TOL.items()),
+          "the float32 attention kernels disagree with their plain versions")
+    again = attention_f32_fwd(q, k, v, scale, keep, rate)
+    again_grads = attention_f32_bwd(q, k, v, out, lse, do, scale, bits, rate)
+    check(all(torch.equal(x, y) for x, y in zip(
+        (out, lse, bits, *grads), (*again, *again_grads))),
+          "float32 attention runs are not bit-identical")
+    del again, again_grads
+
+    def device_ms(fn, calls=5):
+        split = kernel_ms(fn, calls)
+        return sum(split.values()), split
+
+    fwd, fwd_split = device_ms(
+        lambda: attention_f32_fwd(q, k, v, scale, keep, rate))
+    bwd, bwd_split = device_ms(
+        lambda: attention_f32_bwd(q, k, v, out, lse, do, scale, bits, rate))
+    plain_fwd = time_ms(lambda: attention_f32_fwd_plain(
+        q, k, v, scale, keep, rate), 3, 1)
+    plain_bwd = time_ms(lambda: attention_f32_bwd_plain(
+        q, k, v, out, lse, do, scale, keep, rate), 3, 1)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def einsum(qq, kk, vv):
+        # models/transformer.py::_core in float32, the mask given
+        s = torch.matmul(qq, kk.transpose(-1, -2)) / torch.sqrt(
+            torch.tensor(float(hd)))
+        p = torch.softmax(s, dim=-1)
+        return torch.matmul(torch.where(keep, p / (1.0 - rate),
+                                        torch.zeros((), device="cuda")), vv)
+
+    ein_fwd, _ = device_ms(lambda: einsum(q, k, v), 3)
+    ein_both, _ = device_ms(lambda: torch.autograd.grad(
+        einsum(*leaves), leaves, do), 3)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib_fwd, _ = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, dropout_p=rate, scale=scale), 3)
+        lib_both, _ = device_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, dropout_p=rate,
+                                           scale=scale), leaves, do), 3)
+    ops_fwd, ops_bwd = (c * b * h * l * l * hd for c in (4, 10))
+    # each input byte read once, each output byte written once: q, k, v in
+    # and o out (and the LSE) at 4 bytes, the mask at a bit a score; the
+    # backward q, k, v, o, do in and dq, dk, dv out, the LSE and the mask
+    mask_b = b * h * l * l / 8
+    fwd_b, fwd_by = bound(4 * b * h * l * hd * 4 + b * h * l * 4 + mask_b,
+                          ops_fwd, F32_FLOP_PER_S)
+    bwd_b, bwd_by = bound(8 * b * h * l * hd * 4 + b * h * l * 4 + mask_b,
+                          ops_bwd, F32_FLOP_PER_S)
+    print(f"attention_f32 {list(F32_ATTN_SHAPE)} (device ms of every kernel "
+          f"a call launches): forward kernel_ms {fwd:.4f} ({fwd_b / fwd:.1%} "
+          f"of bound_ms {fwd_b:.4f}, {fwd_by}; {ops_fwd / fwd / 1e9:.1f} "
+          f"TFLOP/s) plain_ms {plain_fwd:.4f} einsum_ms {ein_fwd:.4f} "
+          f"library_ms {lib_fwd:.4f} (SDPA efficient, float32, dropout "
+          f"{rate}); backward kernel_ms {bwd:.4f} ({bwd_b / bwd:.1%} of "
+          f"bound_ms {bwd_b:.4f}, {bwd_by}; {ops_bwd / bwd / 1e9:.1f} "
+          f"TFLOP/s counted at 10 L^2 hd) plain_ms {plain_bwd:.4f}; forward "
+          f"and backward {fwd + bwd:.4f} against the einsum path's "
+          f"{ein_both:.4f} and SDPA's {lib_both:.4f}; forward by kernel "
+          f"{fwd_split}, backward by kernel {bwd_split}")
+    check(fwd < ein_fwd and fwd + bwd < ein_both, "the float32 attention "
+          "kernels are not faster than the einsum path")
+    common = {"route": "cuda",
+              "source": "rag_snvbert_tpu_torch/csrc/attention_f32.cu",
+              "replaces": "none (the einsum path, "
+                          "models/transformer.py::_core)",
+              "shape": list(F32_ATTN_SHAPE)}
+    return [{**common, "name": "attention_f32", "max_abs_err": abs_errs["o"],
+             "ms": fwd, "plain_ms": plain_fwd, "bound_ms": fwd_b,
+             "bound_by": fwd_by, "library_ms": lib_fwd, "einsum_ms": ein_fwd,
+             "by_kernel": fwd_split},
+            {**common, "name": "attention_f32_bwd",
+             "max_abs_err": max(abs_errs[n] for n in ("dq", "dk", "dv")),
+             "ms": bwd, "plain_ms": plain_bwd, "bound_ms": bwd_b,
+             "bound_by": bwd_by, "library_ms": lib_both - lib_fwd,
+             "einsum_ms": ein_both - ein_fwd, "by_kernel": bwd_split}]
 
 
 def _tie_aware(name, vals, ids, ref_vals, ref_ids, scale, dist_of) -> float:
@@ -992,7 +1121,8 @@ def phase_index(gen) -> dict[str, int]:
           f"to packed L2 {same}")
     check(same, "HammingIndex disagrees with its direct path or with L2")
     del bits
-    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+    want = {"attention": 0, "attention_bwd": 0, "attention_f32": 0,
+            "attention_f32_bwd": 0, "layer_norm": 0,
             "layer_norm_bwd": 0, "l2_topk": 0, "l2_topk_rf": 2 * 4,
             "l2_topk_float": 2 * 4}
     print(f"index launches {counts} (expected {want}: search, masked "
@@ -1222,7 +1352,8 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * batches * len(targets),
-            "attention_bwd": 0, **ln_want(counts, True),
+            "attention_bwd": 0, "attention_f32": 0, "attention_f32_bwd": 0,
+            **ln_want(counts, True),
             "l2_topk": batches * len(targets), "l2_topk_rf": 0,
             "l2_topk_float": 0}
     print(f"launches {counts} (expected {want}: {n_win} windows x "
@@ -1443,7 +1574,8 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     by_verb["train"] = ops.launch_counts()
     micro = n_win * -(-bundle.train.n_samples // 24)
     want = {"attention": m.n_layers * micro, "attention_bwd": m.n_layers
-            * micro, **ln_want(by_verb["train"], True, True),
+            * micro, "attention_f32": 0, "attention_f32_bwd": 0,
+            **ln_want(by_verb["train"], True, True),
             "l2_topk": micro, "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"train: {train_s:.2f} s for {micro} micro-steps and a "
           f"checkpoint; launches {by_verb['train']} (expected {want}); "
@@ -1460,6 +1592,7 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     infer_s = time.perf_counter() - t
     by_verb["infer"] = ops.launch_counts()
     want = {"attention": m.n_layers * batches, "attention_bwd": 0,
+            "attention_f32": 0, "attention_f32_bwd": 0,
             **ln_want(by_verb["infer"], True), "l2_topk": batches,
             "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"infer: {infer_s:.2f} s (model load, VCF parse, imputation and "
@@ -1526,6 +1659,7 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     tail = json.loads(proc.stderr.strip().splitlines()[-1])
     by_verb["serve"] = tail["launches"]
     want = {"attention": 2 * m.n_layers * batches, "attention_bwd": 0,
+            "attention_f32": 0, "attention_f32_bwd": 0,
             **ln_want(by_verb["serve"], True), "l2_topk": 2 * batches,
             "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"serve (JSON lines, a subprocess): {serve_s:.2f} s in all; ready "
@@ -1700,7 +1834,7 @@ def phase_interop(profile: bool = False) -> dict[str, int]:
     """A reference checkpoint at v18_embedding_rag's width (384d, 12 layers,
     12 heads, post-LN, float32, frozen BatchNorm statistics) through the
     port's verbs: convert-ckpt, infer on the card over the serving bundle
-    (attention dropout 0.1, so the einsum path as in the JAX package, and
+    (attention dropout 0.1, so the float32 attention kernels, and
     the l2_topk kernel, whose ids are held against the plain search on the
     same inputs), export-ckpt and a reconversion, and two micro-steps of
     train --init-from."""
@@ -1781,9 +1915,10 @@ def phase_interop(profile: bool = False) -> dict[str, int]:
     finally:
         retrieval.search = real_search
     counts["infer"] = ops.launch_counts()
-    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
-            "layer_norm_bwd": 0, "l2_topk": batches, "l2_topk_rf": 0,
-            "l2_topk_float": 0}
+    want = {"attention": 0, "attention_bwd": 0,
+            "attention_f32": m.n_layers * batches, "attention_f32_bwd": 0,
+            "layer_norm": 0, "layer_norm_bwd": 0, "l2_topk": batches,
+            "l2_topk_rf": 0, "l2_topk_float": 0}
     st = {key: [s[key] for s in searches] for key in searches[0]}
     print(f"infer of the converted model: {infer_s:.2f} s in all (model "
           f"build, checkpoint load, VCF parse, imputation, VCF write); "
@@ -1880,7 +2015,9 @@ def phase_interop(profile: bool = False) -> dict[str, int]:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
     counts["train"] = ops.launch_counts()
-    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+    want = {"attention": 0, "attention_bwd": 0,
+            "attention_f32": m.n_layers * 2,
+            "attention_f32_bwd": m.n_layers * 2, "layer_norm": 0,
             "layer_norm_bwd": 0, "l2_topk": 2, "l2_topk_rf": 0,
             "l2_topk_float": 0}
     state = torch.load(at("finetune/ckpt_ep0/state.pt"), weights_only=True)
@@ -1931,6 +2068,7 @@ def phase_convergence(profile: bool = False) -> dict[str, int]:
     micro = CONV_WINDOWS * -(-first["train_samples"] // cfg.batch_size)
     val = CONV_WINDOWS * -(-first["val_samples"] // 48)   # TrainerConfig's
     want = {"attention": 2 * m * (micro + val), "attention_bwd": 2 * m * micro,
+            "attention_f32": 0, "attention_f32_bwd": 0,
             **ln_want(counts, True, True), "l2_topk": 2 * (micro + val),
             "l2_topk_rf": 0, "l2_topk_float": 0}
     with open(os.path.join(CONV_DIR, "metrics.csv")) as f:
@@ -2026,6 +2164,7 @@ def phase_ab_compat(profile: bool = False) -> dict[str, int]:
         kernels = name != "compat"
         want[name] = {"attention": m * (micro + val) * kernels,
                       "attention_bwd": m * micro * kernels,
+                      "attention_f32": 0, "attention_f32_bwd": 0,
                       **ln_want(per[name], True, True),
                       "l2_topk": micro + val, "l2_topk_rf": 0,
                       "l2_topk_float": 0}
@@ -2091,7 +2230,8 @@ def phase_sweep_topk(profile: bool = False) -> dict[str, int]:
     counts = ops.launch_counts()
     # a dtype: one pass of the default plan (what every plan is held to),
     # then each plan one pass to check it and two timed passes
-    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+    want = {"attention": 0, "attention_bwd": 0, "attention_f32": 0,
+            "attention_f32_bwd": 0, "layer_norm": 0,
             "layer_norm_bwd": 0, "l2_topk": 0,
             "l2_topk_rf": SWEEP_CHUNKS * (2 + 3 * n_plans),
             "l2_topk_float": 0}
@@ -2468,7 +2608,8 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     opt.step = plain_step
     peak_fit = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * (micro + val_steps),
-            "attention_bwd": m.n_layers * micro,
+            "attention_bwd": m.n_layers * micro, "attention_f32": 0,
+            "attention_f32_bwd": 0,
             **ln_want(counts, True, True), "l2_topk": micro + val_steps,
             "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"fit: {fit_s:.2f} s for {micro} micro-steps ({opt.count} updates) "
@@ -2584,6 +2725,7 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     k_loss, k_grads = _grads_of_one_batch(model, batch, ctx_of, True)
     one = ops.launch_counts()
     check(one == {"attention": m.n_layers, "attention_bwd": m.n_layers,
+                  "attention_f32": 0, "attention_f32_bwd": 0,
                   **ln_want(one, True, True), "l2_topk": 1, "l2_topk_rf": 0,
                   "l2_topk_float": 0},
           f"kernel path launches {one}")
@@ -2673,7 +2815,9 @@ def phase_token_serving(profile: bool = False) -> dict[str, int]:
         print(f"token request {i}: {sec:.3f} s, {n_imp} imputed genotypes, "
               f"{n_imp / sec:.0f} imputed genotypes/s")
     counts = ops.launch_counts()
-    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+    want = {"attention": 0, "attention_bwd": 0,
+            "attention_f32": m.n_layers * batches * len(targets),
+            "attention_f32_bwd": 0, "layer_norm": 0,
             "layer_norm_bwd": 0, "l2_topk": 0,
             "l2_topk_rf": batches * len(targets), "l2_topk_float": 0}
     print(f"token launches {counts} (expected {want}: {n_win} windows x "
@@ -2788,7 +2932,9 @@ def phase_token_training(profile: bool = False) -> dict[str, int]:
     fit_s = time.perf_counter() - t
     counts = ops.launch_counts()
     opt.step = plain_step
-    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+    want = {"attention": 0, "attention_bwd": 0,
+            "attention_f32": m.n_layers * (micro + val_steps),
+            "attention_f32_bwd": m.n_layers * micro, "layer_norm": 0,
             "layer_norm_bwd": 0, "l2_topk": 0,
             "l2_topk_rf": micro + val_steps, "l2_topk_float": 0}
     print(f"token fit (v17_token_rag, batch {tcfg.batch_size}, accumulation "
@@ -3198,8 +3344,9 @@ def phase_remat(profile: bool = False) -> dict[str, int]:
     del trainer, fresh, opt, batch, ctx, snap_params, snap_opt
     torch.cuda.empty_cache()
 
-    # (3) V17 token training at batch 16 (attention dropout 0.1: the einsum
-    # path, where "save_most" recomputes the [B, H, L, L] core)
+    # (3) V17 token training at batch 16 (float32, attention dropout 0.1:
+    # the float32 attention kernels, which store no [B, H, L, L] core, so
+    # "save_most" stores what no remat does)
     tcfg17 = PRESETS["v17_token_rag"]
     tbundle, tds = _train_bundle(32)
     tmeta = tds.windows[0]
@@ -3228,9 +3375,11 @@ def phase_remat(profile: bool = False) -> dict[str, int]:
               f"{r['ms']:.1f} ms; peak device memory {r['peak_gb']:.2f} GB "
               f"({r['act_gb']:.2f} GB above the resident state); launches "
               f"{ {k: v for k, v in r['launches'].items() if v} }")
-        check(all(same.values()) and r["launches"]["l2_topk_rf"] == 4,
-              f"v17 remat={mode!r} changed a number or skipped l2_topk_rf")
-        check(mode is False or r["peak_gb"] < truns[False]["peak_gb"],
+        check(all(same.values()) and r["launches"]["l2_topk_rf"] == 4
+              and r["launches"]["attention_f32_bwd"] == 4 * tcfg17.model
+              .n_layers, f"v17 remat={mode!r} changed a number or skipped "
+              "l2_topk_rf or the float32 attention kernels")
+        check(mode is not True or r["peak_gb"] < truns[False]["peak_gb"],
               f"v17 remat={mode!r} did not lower the peak")
     del truns, tbatch
     torch.cuda.empty_cache()
@@ -3259,7 +3408,8 @@ def phase_remat(profile: bool = False) -> dict[str, int]:
 DISPATCH_DIR = "runs/chip_smoke_dispatch"
 DISPATCH_K = 4
 DISPATCH_KERNELS = {"tpu_default": ("attention", "attention_bwd", "l2_topk"),
-                    "v17_token_rag": ("l2_topk_rf",)}
+                    "v17_token_rag": ("attention_f32", "attention_f32_bwd",
+                                      "l2_topk_rf")}
 
 
 def _dispatch_trainer(preset: str, ds, vocab: int, k: int, batch: int,
@@ -3808,6 +3958,7 @@ def _add_tp2(total: dict, target, ref, ref_sec: float, band) -> dict:
         for name in cfgs:
             part = r["serve", name]
             want = {"attention": serve_layers * batches, "attention_bwd": 0,
+                    "attention_f32": 0, "attention_f32_bwd": 0,
                     **ln_want(part["launches"], True), "l2_topk": batches,
                     "l2_topk_rf": 0, "l2_topk_float": 0}
             check(part["heads"] == (2, want_split)
@@ -3822,6 +3973,7 @@ def _add_tp2(total: dict, target, ref, ref_sec: float, band) -> dict:
             part = r["fit", label]
             want = {"attention": TP2_TRAIN_LAYERS * micro,
                     "attention_bwd": TP2_TRAIN_LAYERS * micro,
+                    "attention_f32": 0, "attention_f32_bwd": 0,
                     **ln_want(part["launches"], True, True),
                     "l2_topk": micro, "l2_topk_rf": 0, "l2_topk_float": 0}
             check(part["launches"] == want,
@@ -3984,7 +4136,8 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
                   "dp2 x idx2 training (and its control)")
     micro = 4
     per_rank = {"attention": m.n_layers * micro,
-                "attention_bwd": m.n_layers * micro, "l2_topk": micro,
+                "attention_bwd": m.n_layers * micro, "attention_f32": 0,
+                "attention_f32_bwd": 0, "l2_topk": micro,
                 "l2_topk_rf": 0, "l2_topk_float": 0}
     for r in runs:
         _add(total, r["launches"])
@@ -4062,6 +4215,7 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
     runs = _spawn(_dist_serve_rank, 3, (targets,), "tp3 serving")
     batches = 3 * 2
     per_rank = {"attention": m.n_layers * batches * 2, "attention_bwd": 0,
+                "attention_f32": 0, "attention_f32_bwd": 0,
                 "l2_topk": batches * 2, "l2_topk_rf": 0, "l2_topk_float": 0}
     for r in runs:
         _add(total, r["launches"])
@@ -4099,6 +4253,7 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
                   "dp2 imputation + 2-shard genotype index")
     # each storage searched with both merges, each twice (warm, timed)
     per_rank = {"attention": m.n_layers * batches, "attention_bwd": 0,
+                "attention_f32": 0, "attention_f32_bwd": 0,
                 "l2_topk": batches, "l2_topk_rf": 2 * 2 * 2,
                 "l2_topk_float": 2 * 2 * 2}
     for r in runs:
@@ -4203,7 +4358,8 @@ def phase_quality_ckpt(profile: bool = False) -> dict[str, int]:
     rare_f1, common_f1 = (f1(calls[:, s], truth[:, s]) for s in (rare,
                                                                  ~rare))
     st = {key: [s[key] for s in searches] for key in searches[0]}
-    want = {"attention": 0, "attention_bwd": 0, "layer_norm": 0,
+    want = {"attention": 0, "attention_bwd": 0, "attention_f32": 0,
+            "attention_f32_bwd": 0, "layer_norm": 0,
             "layer_norm_bwd": 0, "l2_topk": len(searches), "l2_topk_rf": 0,
             "l2_topk_float": 0}
     print(f"stored trained checkpoint on the card: accuracy {acc:.4f} "
@@ -4322,6 +4478,8 @@ def main() -> None:
     kernels.append(phase_attention_bwd(gen))
     torch.cuda.empty_cache()
     kernels.extend(phase_layer_norm(gen))
+    torch.cuda.empty_cache()
+    kernels.extend(phase_attention_f32(gen))
     torch.cuda.empty_cache()
     kernels.append(phase_l2(gen))
     torch.cuda.empty_cache()

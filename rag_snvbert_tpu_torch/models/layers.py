@@ -198,34 +198,45 @@ class BatchRows:
         return g_off, torch.cat(parts)
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
-            broadcast: bool = False, rows: BatchRows | None = None,
-            heads: tuple[int, int, int] | None = None) -> torch.Tensor:
-    """flax ``nn.Dropout`` in training: keep each element with probability
-    ``1 - rate`` and divide the kept ones by it, with the keep draws taken
-    from ``gen`` (never torch's global RNG).  ``broadcast`` shares one mask
-    along the sequence axis of ``[B, L, D]`` (the JAX package's
-    ``dropout_broadcast``).  ``rows`` (data parallelism) draws at the
-    global batch's leading size and keeps this rank's rows; ``heads``
-    ``(lo, hi, total)`` (tensor parallelism of attention probabilities
-    ``[B, H, L, L]``) draws every head and keeps ``lo:hi``.  Raises without
-    a generator."""
-    if rate == 0.0:
-        return x
+def keep_mask(shape, rate: float, gen: torch.Generator | None, device,
+              broadcast: bool = False, rows: BatchRows | None = None,
+              heads: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """The bool keep mask that ``dropout`` draws for a tensor of ``shape``
+    on ``device``: ``torch.rand(...) >= rate`` from ``gen`` (never torch's
+    global RNG).  ``broadcast`` draws one mask along the sequence axis of
+    ``[B, L, D]`` (the JAX package's ``dropout_broadcast``; the mask is
+    ``[B, 1, D]``).  ``rows`` (data parallelism) draws at the global
+    batch's leading size and keeps this rank's rows; ``heads`` ``(lo, hi,
+    total)`` (tensor parallelism of attention probabilities ``[B, H, L,
+    L]``) draws every head and keeps ``lo:hi``.  Raises without a
+    generator.  The fused float32 attention (``ops/attention_f32.py``)
+    takes its mask from here too, so both paths drop the same scores."""
     if gen is None:
         raise RuntimeError("dropout in train mode needs a generator: call "
                            "set_dropout_generator(model, generator) first")
-    shape = [x.shape[0], 1, x.shape[2]] if broadcast else list(x.shape)
+    draw = [shape[0], 1, shape[2]] if broadcast else list(shape)
     idx = None
     if rows is not None and rows.count != rows.total:
-        shape[0], idx = rows.select(x.shape[0], x.device)
+        draw[0], idx = rows.select(shape[0], device)
     if heads is not None:
-        shape[1] = heads[2]
-    keep = torch.rand(shape, generator=gen, device=x.device) >= rate
+        draw[1] = heads[2]
+    keep = torch.rand(draw, generator=gen, device=device) >= rate
     if idx is not None:
         keep = keep[idx]
     if heads is not None:
         keep = keep[:, heads[0]: heads[1]]
+    return keep
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
+            broadcast: bool = False, rows: BatchRows | None = None,
+            heads: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    ``1 - rate`` and divide the kept ones by it; the mask is the one
+    ``keep_mask`` draws for ``x`` with these arguments."""
+    if rate == 0.0:
+        return x
+    keep = keep_mask(x.shape, rate, gen, x.device, broadcast, rows, heads)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -248,6 +259,15 @@ class Dropout(nn.Module):
             return x
         return dropout(x, self.rate, self.generator, self.broadcast,
                        self.rows, self.heads)
+
+    def keep(self, shape, device) -> torch.Tensor | None:
+        """The keep mask ``forward`` would draw for an input of ``shape``,
+        for a kernel that drops inside (``ops/attention_f32.py``); None in
+        eval mode or at rate 0, where ``forward`` draws nothing."""
+        if not self.training or self.rate == 0.0:
+            return None
+        return keep_mask(shape, self.rate, self.generator, device,
+                         self.broadcast, self.rows, self.heads)
 
 
 class RecomputeDraws:

@@ -1,18 +1,29 @@
 """Transformer encoder: multi-head attention, feed-forward, blocks (post-LN
 reference topology or pre-LN), and the layer stack.
 
-Port of rag_snvbert_tpu/models/transformer.py.  Attention takes the fused
-kernel (``ops/attention.py``) where the JAX package takes its Pallas kernel
-(``flash_attention`` set, attention dropout 0, no mask,
-transformer.py:207-208); otherwise the plain torch math below, the twin of
-the JAX einsum path (:220-233).  The layer stack is an unrolled loop: no
-scan and no pad-once residency (:379-399 pads to TPU block multiples; the
-CUDA kernel masks the ragged tail itself).  ``quant`` (the model's
-``int8_matmuls``) builds every projection as ``ops.quant``'s ``Int8Dense``
-(:191-192, :249-250).  ``tp_group`` (set by ``parallel/tp.py``'s
-``shard_model``) makes attention and the FFN Megatron-parallel: each rank
-holds a column slice of query/key/value (or of each third of ``qkv``) and
-of ``w_1``, and the row-parallel ``output`` and ``w_2`` products are
+Port of rag_snvbert_tpu/models/transformer.py.  Attention routes by what
+it sees, with no flag:
+
+  - float32 CUDA q, k and v of head dim 32 (the kernels' instance),
+    float32 scores and no mask: the fused float32 kernels
+    (``ops/attention_f32.py``), with the attention dropout's mask drawn by
+    ``attn_drop.keep`` (the draws the einsum path's dropout makes) and
+    applied inside, whatever ``flash_attention`` says (upstream V18 and
+    V17 take this path);
+  - else ``flash_attention`` set, attention dropout 0 and no mask: the
+    fused bf16 kernels (``ops/attention.py``), where the JAX package takes
+    its Pallas kernel (transformer.py:207-208);
+  - otherwise (the CPU, a mask, bf16 scores with dropout) the plain torch
+    math below, the twin of the JAX einsum path (:220-233).
+
+The layer stack is an unrolled loop: no scan and no pad-once residency
+(:379-399 pads to TPU block multiples; the CUDA kernels mask the ragged
+tail themselves).  ``quant`` (the model's ``int8_matmuls``) builds every
+projection as ``ops.quant``'s ``Int8Dense`` (:191-192, :249-250).
+``tp_group`` (set by ``parallel/tp.py``'s ``shard_model``) makes
+attention and the FFN Megatron-parallel: each rank holds a column slice
+of query/key/value (or of each third of ``qkv``) and of ``w_1``, and the
+row-parallel ``output`` and ``w_2`` products are
 summed over the group.  Where the ranks hold whole heads, a rank runs
 attention on its own.  Where a rank's columns split a head
 (``head_split``: ``tpu_default``'s 3 heads of 128 at tp2 or tp4), it
@@ -35,9 +46,10 @@ stores for the backward pass:
                    without remat); backward runs the attention again;
   ``"save_most"``  all but the einsum path's ``[B, H, L, L]`` scores,
                    probabilities and dropout mask, which backward
-                   recomputes from q, k and v; the kernel path never stores
-                   them, so there it changes nothing (as on the JAX splash
-                   path, which names no tensor for the policy).
+                   recomputes from q, k and v; the kernel paths never store
+                   them (the float32 one keeps the mask as bits), so there
+                   it changes nothing (as on the JAX splash path, which
+                   names no tensor for the policy).
 
 With grad disabled (serving, validation) every mode is a plain call.
 Under tensor parallelism a recompute repeats the forward's all-reduces
@@ -51,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..ops.attention_f32 import HEAD_DIM as F32_HEAD_DIM, attention_f32
 from .layers import (Dropout, LayerNorm, checkpoint, column_input,
                      row_parallel)
 
@@ -60,7 +73,8 @@ REMAT_MODES = (False, True, "save_ffn", "attention", "save_most")
 class MultiHeadAttention(nn.Module):
     """``remat``: ``True`` (the block's ``"attention"`` mode) checkpoints
     the whole forward; ``"save_most"`` only the einsum path's score ->
-    softmax -> dropout -> ``probs @ v`` core."""
+    softmax -> dropout -> ``probs @ v`` core.  The module docstring gives
+    the routing between the kernels and the einsum path."""
 
     def __init__(self, heads: int, dims: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32,
@@ -127,7 +141,14 @@ class MultiHeadAttention(nn.Module):
 
             q, k, v = proj(self.query), proj(self.key), proj(self.value)
 
-        if self.flash and mask is None and self.attn_rate == 0.0:
+        if (q.is_cuda and q.dtype == torch.float32 and hd == F32_HEAD_DIM
+                and self.score_dtype == torch.float32 and mask is None):
+            shape = (b, heads, l, l)
+            keep = self.attn_drop.keep(shape, q.device)
+            out = attention_f32(q.contiguous(), k.contiguous(),
+                                v.contiguous(), 1.0 / float(hd) ** 0.5, keep,
+                                self.attn_rate if keep is not None else 0.0)
+        elif self.flash and mask is None and self.attn_rate == 0.0:
             out = attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             1.0 / float(hd) ** 0.5)
         elif self.remat == "save_most":

@@ -1,8 +1,16 @@
 """Kernels written by hand for Hopper (``csrc/``), their wrappers and plain
 versions.
 
+Attention routes by what it sees (``models/transformer.py``): float32
+CUDA q, k and v with head dim 32, float32 scores and no mask take
+the float32 kernels with the attention dropout inside
+(``attention_f32``, ``attention_f32_bwd``); otherwise ``flash_attention``
+with attention dropout 0 and no mask takes the bf16 kernels
+(``attention``, ``attention_bwd``); the rest the einsum path.
+
 Each wrapper counts its kernel launches in a plain integer attribute
 (``attention.launches``, ``attention_bwd.launches``,
+``attention_f32.launches``, ``attention_f32_bwd.launches``,
 ``layer_norm.launches``, ``layer_norm_bwd.launches``, ``l2_topk.launches``,
 ``l2_topk_rf.launches``, ``l2_topk_float.launches``,
 ``int8_probe.launches``, ``int8_probe.pack_int4.launches``), so a run
@@ -13,6 +21,7 @@ adds the int8 probe and its int4 pack, which only the probe tools
 """
 
 from .attention import attention, attention_bwd
+from .attention_f32 import attention_f32, attention_f32_bwd
 from .layer_norm import layer_norm, layer_norm_bwd
 from .l2_topk import l2_topk
 from .l2_topk_float import l2_topk_float
@@ -20,6 +29,8 @@ from . import int8_probe as _int8_probe   # ops.int8_probe: the module
 from .l2_topk_rf import l2_topk_rf
 
 WRAPPERS = {"attention": attention, "attention_bwd": attention_bwd,
+            "attention_f32": attention_f32,
+            "attention_f32_bwd": attention_f32_bwd,
             "layer_norm": layer_norm, "layer_norm_bwd": layer_norm_bwd,
             "l2_topk": l2_topk, "l2_topk_rf": l2_topk_rf,
             "l2_topk_float": l2_topk_float}

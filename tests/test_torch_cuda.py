@@ -161,6 +161,8 @@ def test_attention_is_differentiable_through_the_kernels(cuda):
     assert out.grad_fn is not None
     out.float().square().sum().backward()
     assert ops.launch_counts() == {"attention": 1, "attention_bwd": 1,
+                                   "attention_f32": 0,
+                                   "attention_f32_bwd": 0,
                                    "layer_norm": 0, "layer_norm_bwd": 0,
                                    "l2_topk": 0, "l2_topk_rf": 0,
                                    "l2_topk_float": 0}
@@ -301,6 +303,8 @@ def test_small_model_serves_on_the_card_like_on_the_cpu(cuda):
     # forward's 3 a block, the AF embedding twice (target and reference
     # streams), the embedding fusion, the RAG fusion and its AF interaction
     assert ops.launch_counts() == {"attention": 2 * 2, "attention_bwd": 0,
+                                   "attention_f32": 0,
+                                   "attention_f32_bwd": 0,
                                    "layer_norm": 2 * (1 + 3 * 2 + 5),
                                    "layer_norm_bwd": 0,
                                    "l2_topk": 2, "l2_topk_rf": 0,
@@ -352,6 +356,8 @@ def test_small_model_trains_on_the_card_like_on_the_cpu(cuda):
             # every bf16 LayerNorm of the micro-step forward and back
             assert ops.launch_counts() == {"attention": 2,
                                            "attention_bwd": 2,
+                                           "attention_f32": 0,
+                                           "attention_f32_bwd": 0,
                                            "layer_norm": 3 * 2 + 5,
                                            "layer_norm_bwd": 3 * 2 + 5,
                                            "l2_topk": 1, "l2_topk_rf": 0,
@@ -646,6 +652,8 @@ def test_small_token_model_trains_on_the_card_like_on_the_cpu(cuda):
             # float32 LayerNorms only: the kernels take none
             assert ops.launch_counts() == {"attention": 0,
                                            "attention_bwd": 0,
+                                           "attention_f32": 0,
+                                           "attention_f32_bwd": 0,
                                            "layer_norm": 0,
                                            "layer_norm_bwd": 0, "l2_topk": 0,
                                            "l2_topk_rf": 2,
@@ -1320,3 +1328,308 @@ def test_layer_norm_launches_in_a_tpu_default_micro_step(cuda):
                for name, flag in calls if not flag)
     counts = ops.launch_counts()
     assert counts["layer_norm"] == counts["layer_norm_bwd"] == bf16
+
+
+# ---- the float32 attention kernels with dropout (csrc/attention_f32.cu) ----
+
+F32_RATE = 0.1
+# upstream V18 as published at batch 24 (48 sequences of 12 heads) and
+# V17 at batch 16 with its retrieved segments (64 sequences of 6 heads)
+F32_MAIN = [(48, 12, 1030, 32), (64, 6, 1030, 32)]
+F32_EDGE_LS = (1, 63, 64, 65, 127, 129, 1030)
+
+
+def _f32_inputs(shape, dev, seed, rate):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(4))
+    keep = None
+    if rate:
+        keep = torch.rand(*shape[:3], shape[2], generator=gen,
+                          device=dev) >= rate
+    return q, k, v, do, keep
+
+
+def _f32_run(q, k, v, do, keep, rate):
+    """The kernels' ``(o, lse, dq, dk, dv)``."""
+    from rag_snvbert_tpu_torch.ops.attention_f32 import (attention_f32_bwd,
+                                                         attention_f32_fwd)
+
+    scale = q.shape[-1] ** -0.5
+    out, lse, bits = attention_f32_fwd(q, k, v, scale, keep, rate)
+    return (out, lse, *attention_f32_bwd(q, k, v, out, lse, do, scale, bits,
+                                         rate))
+
+
+def _f32_plain(q, k, v, do, keep, rate):
+    from rag_snvbert_tpu_torch.ops.attention_f32 import (
+        attention_f32_bwd_plain, attention_f32_fwd_plain)
+
+    scale = q.shape[-1] ** -0.5
+    out, lse = attention_f32_fwd_plain(q, k, v, scale, keep, rate)
+    return (out, lse, *attention_f32_bwd_plain(q, k, v, out, lse, do, scale,
+                                               keep, rate))
+
+
+def _f32_assert_close(got, want):
+    # float32 on both sides, sums of up to 1030 terms in other orders
+    # (about sqrt(1030) ulps of the largest term): o and the LSE within
+    # 1e-5 of their largest value, the gradients (differences of such
+    # sums) within 1e-4 of theirs
+    for name, a, b, tol in zip(("o", "lse", "dq", "dk", "dv"), got, want,
+                               (1e-5, 1e-5, 1e-4, 1e-4, 1e-4)):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        err = (a - b).abs().max().item()
+        assert err <= tol * b.abs().max().item() + 1e-6, (name, err)
+
+
+@pytest.mark.parametrize("rate", [0.0, F32_RATE])
+@pytest.mark.parametrize("shape", F32_MAIN + [
+    (2, 3, l, 32) for l in F32_EDGE_LS] + [(1, 1, 1030, 32),
+                                           (3, 7, 200, 32)])
+def test_attention_f32_kernels_match_plain(cuda, shape, rate):
+    q, k, v, do, keep = _f32_inputs(shape, cuda, 1, rate)
+    before = ops.launch_counts()
+    got = _f32_run(q, k, v, do, keep, rate)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["attention_f32"] == before["attention_f32"] + 1
+    assert after["attention_f32_bwd"] == before["attention_f32_bwd"] + 1
+    want = _f32_plain(q, k, v, do, keep, rate)
+    _f32_assert_close(got, want)
+
+
+def test_attention_f32_error_is_the_plain_versions_or_less(cuda):
+    """Against float64, the kernels' error is at most about the plain
+    float32 version's (which rounds its products and softmax once)."""
+    q, k, v, do, keep = _f32_inputs((4, 12, 1030, 32), cuda, 2, F32_RATE)
+    got = _f32_run(q, k, v, do, keep, F32_RATE)
+    plain = _f32_plain(q, k, v, do, keep, F32_RATE)
+    exact = _f32_plain(*(x.double() for x in (q, k, v, do)), keep, F32_RATE)
+    for name, a, p, e in zip(("o", "lse", "dq", "dk", "dv"), got, plain,
+                             exact):
+        err = (a.double() - e).abs().max().item()
+        ref = (p.double() - e).abs().max().item()
+        assert err <= 4 * ref + 1e-7 * e.abs().max().item(), (name, err, ref)
+
+
+def test_attention_f32_keys_with_a_shared_part_keep_dq_accurate(cuda):
+    """Keys that share a large part, as a trained encoder's do: against
+    float64, ``ops.attention_f32`` (its keys less their mean) stays as
+    close as autograd of the einsum path in float32 for the output and
+    every gradient; the kernels fed the keys as they are put dq more than
+    twice as far (its rows of ds sum to a rounding residue, which
+    multiplies the keys' shared part)."""
+    q, k, v, do, keep = _f32_inputs((4, 12, 1030, 32), cuda, 5, F32_RATE)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    k = k + 16.0 * torch.randn(4, 12, 1, 32, generator=gen, device=cuda)
+    scale = 32 ** -0.5
+
+    def einsum(a, b, c):
+        p = torch.softmax(torch.matmul(a, b.transpose(-1, -2)) * scale, -1)
+        p = torch.where(keep, p / (1.0 - F32_RATE),
+                        torch.zeros((), dtype=p.dtype, device=p.device))
+        return torch.matmul(p, c)
+
+    def out_and_grads(fn, *xs):
+        xs = [x.detach().clone().requires_grad_(True) for x in xs]
+        out = fn(*xs)
+        out.backward(do.to(out.dtype))
+        return [out.detach()] + [x.grad for x in xs]
+
+    def errors(got):
+        return [((a.double() - e).norm() / e.norm()).item()
+                for a, e in zip(got, exact)]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        exact = out_and_grads(einsum, *(x.double() for x in (q, k, v)))
+        theirs = errors(out_and_grads(einsum, q, k, v))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    mine = errors(out_and_grads(
+        lambda a, b, c: ops.attention_f32(a, b, c, scale, keep, F32_RATE),
+        q, k, v))
+    for name, a, b in zip(("o", "dq", "dk", "dv"), mine, theirs):
+        assert a <= b, (name, a, b)
+    o, lse, dq, dk, dv = _f32_run(q, k, v, do, keep, F32_RATE)
+    as_given = errors([o, dq, dk, dv])
+    assert as_given[1] > 2 * theirs[1], (as_given[1], theirs[1])
+
+
+def test_attention_f32_runs_are_bit_identical(cuda):
+    q, k, v, do, keep = _f32_inputs(F32_MAIN[0], cuda, 3, F32_RATE)
+    first = _f32_run(q, k, v, do, keep, F32_RATE)
+    second = _f32_run(q, k, v, do, keep, F32_RATE)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("l", (1, 65, 1030))
+def test_attention_f32_pack_matches_plain(cuda, l):
+    from rag_snvbert_tpu_torch.ops.attention_f32 import (pack_keep,
+                                                         pack_keep_plain)
+
+    keep = torch.rand(3, 5, l, l, device=cuda) >= F32_RATE
+    assert torch.equal(pack_keep(keep), pack_keep_plain(keep))
+    # a non-contiguous mask (a tensor-parallel rank's heads) packs alike
+    assert torch.equal(pack_keep(keep[:, 1:3]),
+                       pack_keep_plain(keep[:, 1:3].contiguous()))
+
+
+@pytest.mark.parametrize("l", (65, 129))
+def test_attention_f32_kernels_keep_to_their_head(cuda, l):
+    """Head 1 with NaN in the K, V and dO of head 2 and 1e4 in head 3's:
+    its O, LSE and gradients equal those of head 1 run alone, bit for
+    bit."""
+    q, k, v, do, keep = _f32_inputs((1, 4, l, 32), cuda, 4, F32_RATE)
+    for x in (k, v, do):
+        x[:, 2] = float("nan")
+        x[:, 3] = 1e4
+    got = _f32_run(q, k, v, do, keep, F32_RATE)
+    one = [x[:, 1:2].contiguous() for x in (q, k, v, do, keep)]
+    alone = _f32_run(*one, F32_RATE)
+    for a, b in zip(got, alone):
+        assert torch.equal(a[:, 1:2], b)
+    assert bool(torch.isfinite(got[0][:, :2]).all())
+
+
+def test_attention_f32_is_differentiable_through_the_kernels(cuda):
+    q, k, v, do, keep = _f32_inputs((2, 6, 70, 32), cuda, 5, F32_RATE)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.reset_launches()
+    out = ops.attention_f32(*leaves, 32 ** -0.5, keep, F32_RATE)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert ops.launch_counts() == {"attention": 0, "attention_bwd": 0,
+                                   "attention_f32": 1,
+                                   "attention_f32_bwd": 1,
+                                   "layer_norm": 0, "layer_norm_bwd": 0,
+                                   "l2_topk": 0, "l2_topk_rf": 0,
+                                   "l2_topk_float": 0}
+    want = _f32_plain(q, k, v, do, keep, F32_RATE)
+    for a, b in zip((out, *grads), (want[0], *want[2:])):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_attention_f32_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    from rag_snvbert_tpu_torch.ops.attention_f32 import (attention_f32_bwd,
+                                                         attention_f32_fwd)
+
+    x = torch.zeros(1, 2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        attention_f32_fwd(x.bfloat16(), x.bfloat16(), x.bfloat16(), 1.0)
+    for hd in (16, 64, 128):
+        y = torch.zeros(1, 2, 8, hd, device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            attention_f32_fwd(y, y, y, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 2, 32, 8, device=cuda).transpose(2, 3)
+        attention_f32_fwd(t, t, t, 1.0)
+    with pytest.raises(ValueError, match="keep"):
+        attention_f32_fwd(x, x, x, 1.0, torch.ones(1, 2, 8, 7, device=cuda,
+                                                   dtype=torch.bool), 0.1)
+    out, lse, _ = attention_f32_fwd(x, x, x, 1.0)
+    with pytest.raises(ValueError, match="bits"):
+        attention_f32_bwd(x, x, x, out, lse, x, 1.0,
+                          torch.zeros(1, 2, 8, 1, device=cuda,
+                                      dtype=torch.int32), 0.1)
+    with pytest.raises(ValueError, match="lse"):
+        attention_f32_bwd(x, x, x, out, lse[:, :1], x, 1.0)
+
+
+def _v18_published(**model_kw):
+    """Upstream V18 as published (12 heads of 32, post-LN, float32,
+    attention dropout 0.1) at two layers over windows of 128 sites."""
+    from rag_snvbert_tpu_torch.config import PRESETS
+
+    cfg = PRESETS["v18_embedding_rag"]
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, n_layers=2, seq_len=138, **model_kw))
+
+
+def test_v18_published_graphs_and_remat_are_bit_identical(cuda, tmp_path,
+                                                          monkeypatch):
+    """An epoch of V18 as published at batch 4 x accumulation 2 through
+    ``Trainer``: K = 4 CUDA graphs and every remat mode give the bits of
+    K = 1 without remat, under deterministic algorithms (the CUDA
+    embedding backward sums in a varying order otherwise); the attention
+    runs on the float32 kernels, a forward and a backward a layer and a
+    micro-step."""
+    from rag_snvbert_tpu_torch.config import build_model
+    from rag_snvbert_tpu_torch.data.pipeline import WindowDataset
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+    from rag_snvbert_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    b = make_bundle(n_train_samples=16, n_ref_samples=24, n_sites=256,
+                    n_windows=2, seed=5)
+    ds = WindowDataset(b.train, b.panel, b.freq, b.window.window_info,
+                       b.vocab, ref_vcf=b.ref, seq_len=138)
+
+    def fit(k, remat):
+        cfg = _v18_published(remat=remat)
+        tcfg = TrainerConfig(
+            epochs=1, batch_size=4, val_batch_size=4, init_lr=cfg.init_lr,
+            max_lr=cfg.max_lr, warmup_steps=cfg.warmup_steps,
+            grad_accum_steps=cfg.grad_accum_steps,
+            focal_gamma=cfg.focal_gamma, rag_k=cfg.rag_k, ref_pad_haps=64,
+            output_dir=str(tmp_path / f"k{k}-{remat}"), log_freq=1000,
+            seed=0, rag_mode="embedding", steps_per_dispatch=k,
+            async_checkpoints=False, keep_checkpoints=1)
+        trainer = Trainer(build_model(cfg, b.vocab.size, seed=0), ds, tcfg)
+        ops.reset_launches()
+        row = trainer.fit()["history"][0]
+        torch.cuda.synchronize()
+        return ({n: p.detach().cpu() for n, p in
+                 trainer.model.state_dict().items()},
+                {n: v for n, v in row.items() if "seconds" not in n},
+                ops.launch_counts())
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        params, row, launches = fit(1, False)
+        others = {(k, r): fit(k, r) for k, r in (
+            (4, False), (1, True), (1, "save_ffn"), (1, "attention"),
+            (1, "save_most"), (4, True))}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    micro = 2 * 16 // 4          # two windows of 16 samples at batch 4
+    assert launches["attention_f32_bwd"] == 2 * micro
+    assert launches["attention_f32"] >= 2 * micro
+    assert launches["attention"] == launches["attention_bwd"] == 0
+    for key, (p, r, _) in others.items():
+        assert r == row, key
+        assert all(torch.equal(p[n], v) for n, v in params.items()), key
+
+
+def test_v18_published_imputes_on_the_card_like_on_the_cpu(cuda):
+    from rag_snvbert_tpu_torch.config import build_model
+    from rag_snvbert_tpu_torch.infer.imputer import Imputer
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+
+    cfg = _v18_published()
+    b = make_bundle(n_train_samples=8, n_ref_samples=24, n_sites=256,
+                    n_windows=2, seed=5)
+    keep = np.random.default_rng(0).random(b.train.n_variants) > 0.5
+    target = dataclasses.replace(
+        b.train, gt=b.train.gt[keep], pos=b.train.pos[keep],
+        chrom=b.train.chrom[keep], ref=b.train.ref[keep],
+        alt=b.train.alt[keep], ids=b.train.ids[keep])
+    kw = dict(seq_len=138, window_len=128, ref_pad_haps=64, batch_size=8)
+    ops.reset_launches()
+    on_card = Imputer(build_model(cfg, b.vocab.size, seed=1), b.ref, b.freq,
+                      **kw).impute(target)
+    counts = ops.launch_counts()
+    # two layers a window, without a mask; nothing else
+    assert counts["attention_f32"] == 2 * 2
+    assert counts["attention_f32_bwd"] == counts["attention"] == 0
+    on_cpu = Imputer(build_model(cfg, b.vocab.size, device="cpu", seed=1),
+                     b.ref, b.freq, device="cpu", **kw).impute(target)
+    miss = on_card.imputed_flag
+    for got, want in ((on_card.hap1_prob, on_cpu.hap1_prob),
+                      (on_card.hap2_prob, on_cpu.hap2_prob)):
+        # float32 on both sides (TF32 off), sums in other orders
+        assert np.abs(got[miss] - want[miss]).max() <= 1e-4

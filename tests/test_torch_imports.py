@@ -93,6 +93,8 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     ri = torch.from_numpy(rng.integers(-9, 9, (9, 16)).astype(np.int8))
     ops.l2_topk_rf(ri[:3], ri, (ri.float() ** 2).sum(-1), 2)
     assert ops.launch_counts() == {"attention": 0, "attention_bwd": 0,
+                                   "attention_f32": 0,
+                                   "attention_f32_bwd": 0,
                                    "layer_norm": 0, "layer_norm_bwd": 0,
                                    "l2_topk": 0, "l2_topk_rf": 0,
                                    "l2_topk_float": 0}
