@@ -1908,8 +1908,9 @@ def phase_interop(profile: bool = False) -> dict[str, int]:
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        cli(["infer", "--target", at("target.vcf"), "--output_vcf",
-             at("infer.vcf"), "--npy_prefix", at("infer"), *model_args])
+        with _eager_imputers():
+            cli(["infer", "--target", at("target.vcf"), "--output_vcf",
+                 at("infer.vcf"), "--npy_prefix", at("infer"), *model_args])
         torch.cuda.synchronize()
         infer_s = time.perf_counter() - t
     finally:
@@ -2759,6 +2760,27 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     return counts
 
 
+@contextlib.contextmanager
+def _eager_imputers():
+    """Imputers made inside (by the CLI, where no instance is at hand) run
+    ``_forward`` eagerly: a recorder that reads each batch's retrieval back
+    cannot sit inside a CUDA graph capture (and a replay would not call
+    it)."""
+    from rag_snvbert_tpu_torch.infer.imputer import Imputer
+
+    real = Imputer.__init__
+
+    def init(self, *a, **kw):
+        real(self, *a, **kw)
+        self.use_graphs = False
+
+    Imputer.__init__ = init
+    try:
+        yield
+    finally:
+        Imputer.__init__ = real
+
+
 def _recording(module, store: list):
     """Wrap ``module.retrieve_tokens`` so each call's retrieved segments
     are kept; returns the original to put back."""
@@ -2851,10 +2873,11 @@ def phase_token_serving(profile: bool = False) -> dict[str, int]:
         real = _recording(imputer_mod, segs)
         try:
             before = ops.launch_counts()["l2_topk_rf"]
-            res = Imputer(model, _drop(bundle.ref, sites), bundle.freq,
+            imp = Imputer(model, _drop(bundle.ref, sites), bundle.freq,
                           batch_size=32, rag_mode="token",
-                          use_kernel=use_kernel).impute(
-                _drop(target, sites[keep]))
+                          use_kernel=use_kernel)
+            imp.use_graphs = False    # the recorder sees every batch
+            res = imp.impute(_drop(target, sites[keep]))
             launched = ops.launch_counts()["l2_topk_rf"] - before
         finally:
             imputer_mod.retrieve_tokens = real
@@ -4332,9 +4355,10 @@ def phase_quality_ckpt(profile: bool = False) -> dict[str, int]:
     retrieval.search = held
     ops.reset_launches()
     try:
-        res = Imputer(model, b.ref, b.freq, window_len=QUALITY_SEQ - 8,
-                      seq_len=QUALITY_SEQ, ref_pad_haps=96,
-                      batch_size=16).impute(_drop(b.train, keep))
+        imp = Imputer(model, b.ref, b.freq, window_len=QUALITY_SEQ - 8,
+                      seq_len=QUALITY_SEQ, ref_pad_haps=96, batch_size=16)
+        imp.use_graphs = False        # the search check sees every batch
+        res = imp.impute(_drop(b.train, keep))
     finally:
         retrieval.search = real_search
     counts = ops.launch_counts()

@@ -264,17 +264,16 @@ l2_select(const float* __restrict__ part, const float* __restrict__ qn_part,
   }
 }
 
-// The two kernels' dynamic shared memory limits, raised once a process.
+// The two kernels' dynamic shared memory limits, raised at every launch:
+// an attribute holds for the current device alone, and a process may
+// search on more than one card.
 cudaError_t set_limits() {
-  static cudaError_t result = [] {
-    cudaError_t err = cudaFuncSetAttribute(
-        l2_partial_dots, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem1);
-    if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(l2_select,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kMaxN * (int)sizeof(float));
-  }();
-  return result;
+  cudaError_t err = cudaFuncSetAttribute(
+      l2_partial_dots, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem1);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(l2_select,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxN * (int)sizeof(float));
 }
 
 }  // namespace

@@ -602,12 +602,13 @@ __global__ void l2f_split(const float4* __restrict__ x,
   }
 }
 
+// Raised at every launch: an attribute holds for the current device alone,
+// and a process may search on more than one card.
 template <bool kBf16>
 cudaError_t set_limit() {
-  static cudaError_t result = cudaFuncSetAttribute(
+  return cudaFuncSetAttribute(
       l2f_split_topk<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemMax);
-  return result;
 }
 
 bool aligned16(const void* p) {

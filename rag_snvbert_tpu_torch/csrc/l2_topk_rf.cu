@@ -796,10 +796,11 @@ __global__ void l2rf_pad_queries(const int8_t* __restrict__ q,
   }
 }
 
+// Raised at every launch: an attribute holds for the current device alone,
+// and a process may search on more than one card.
 cudaError_t set_limit() {
-  static cudaError_t result = cudaFuncSetAttribute(
+  return cudaFuncSetAttribute(
       l2rf_split_topk, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-  return result;
 }
 
 bool tma_ok(const void* p, int row_bytes) {

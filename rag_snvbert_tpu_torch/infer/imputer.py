@@ -13,6 +13,34 @@ imputation; each device batch's rows are split over the ``data`` axis,
 the model is split over a ``model`` axis above 1 (``parallel/tp.py``),
 and the probabilities are gathered to every rank (rank 0 writes them), so
 the result is the single-process one.
+
+On the card without a mesh each device batch is one replay of a CUDA
+graph of ``_forward`` (retrieval, the encoder, the heads and their
+softmaxes), so the host issues a few calls a batch where it issued
+hundreds of launches.  A replay gives ``_forward``'s bits:
+
+- one graph per key: the batch's shapes and types (rows are padded to
+  ``batch_size``), the window context's signature (``utils.graphs``)
+  and ``rag_mode``; all share one memory pool;
+- the graph reads static buffers, filled in stream order before the
+  replay: ``hap_1`` and ``hap_2`` for every batch, the window's
+  ``_WINDOW_CONST`` rows and context at the window's first batch (the
+  next window's context is built after this window's replays, so one
+  static context a key is enough);
+- each replay's outputs are copied out of the graph's buffers behind it,
+  before the next replay can rewrite them, into pinned host memory, with
+  an event: the output pipeline's drain of a batch waits for that batch
+  alone, while later replays run (a plain ``.cpu()`` would wait for every
+  replay queued, and the card would idle through each drain);
+- before a key's capture, ``_forward`` runs once eagerly on the capture
+  stream (kernels loaded, cuBLAS handles made).  The kernel wrappers'
+  counts of the warm-up and the capture are taken back and a replay adds
+  the graph's own (``utils.graphs``), so ``ops.launch_counts()`` reads as
+  the eager path's.
+  A capture that fails raises: the card never falls back to eager.
+
+The CPU, and any mesh (gloo cannot be captured; NCCL meshes have not
+been), run ``_forward`` eagerly.
 """
 
 from __future__ import annotations
@@ -36,6 +64,8 @@ from ..parallel.mesh import DATA_AXIS, axis_group, data_sharding
 from ..train.retrieval import (TokenWindowContext, WindowRefContext,
                                build_token_window_ctx, check_int8_vocab,
                                encode_window_refs, retrieve, retrieve_tokens)
+from ..utils.graphs import (advance, counts, ctx_sig, empty_ctx, load_ctx,
+                             take_back)
 from ..utils.timing import span
 
 
@@ -64,6 +94,15 @@ class ImputationResult:
                           self.hap2_prob, imputed_flag=self.imputed_flag)
 
 
+@dataclasses.dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    batch: dict        # the static inputs: hap_1, hap_2 and the window rows
+    ctx: object        # the static window context (None without RAG)
+    out: tuple         # p1, p2, pgt: the graph's outputs, rewritten a replay
+    counts: list[int]  # launches (and Int8Dense calls) a replay makes
+
+
 class Imputer:
     """Impute target samples onto the reference panel's site list.
 
@@ -83,7 +122,16 @@ class Imputer:
     search (``ops.l2_topk``) as an encoded one.
 
     ``mesh``: data- and tensor-parallel imputation over the process group
-    (module docstring); ``batch_size`` must divide over the data axis."""
+    (module docstring); ``batch_size`` must divide over the data axis.
+
+    ``use_graphs`` follows from the device and the mesh: True on the card
+    without a mesh (module docstring), not a setting.  Code that hooks
+    into ``_forward`` and must see it run for every batch (a recorder of
+    the retrieval, a test against the eager path) turns it off on its
+    instance.  ``graph_captures`` and ``graph_replays`` count the CUDA
+    graphs of ``_forward`` captured and the device batches run as their
+    replays (both stay 0 while ``use_graphs`` is False).  One call at a
+    time: the replays share their graph's static buffers."""
 
     # Per-site rows that are the same for every sample of a window: sent
     # to the device once per window as [L] and broadcast there.
@@ -124,6 +172,12 @@ class Imputer:
         self.use_kernel = use_kernel
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self.rows_padded = 0      # device batch rows beyond the samples
+        self.use_graphs = self.device.type == "cuda" and mesh is None
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self._graphs: dict = {}
+        self._pool = None
+        self._stream = None       # warm-ups and captures run on it
         n = ref_vcf.n_variants
         if window is not None:
             self.windows = [(int(s), int(min(e, n)))
@@ -246,6 +300,67 @@ class Imputer:
         pgt = torch.softmax(out[2].float(), dim=-1)
         return p1, p2, pgt
 
+    def _graph_forward(self, batch: dict, ctx, new_window: bool):
+        """``_forward(batch, ctx)`` as a replay of its key's graph,
+        captured on the key's first batch; ``new_window``: the batch is
+        its window's first (the window rows and context are loaded).
+        Returns ``_replay``'s host copies of the outputs and their
+        event."""
+        key = (tuple((k, tuple(v.shape), v.dtype)
+                     for k, v in sorted(batch.items())),
+               ctx_sig(ctx), self.rag_mode)
+        g = self._graphs.get(key)
+        if g is None:
+            with span("imputer.capture"):
+                g = self._graphs[key] = self._capture(batch, ctx)
+            self.graph_captures += 1
+        else:
+            for k, v in batch.items():
+                if new_window or k not in self._WINDOW_CONST:
+                    g.batch[k].copy_(v)
+            if new_window and ctx is not None:
+                load_ctx(g.ctx, ctx)
+        self.graph_replays += 1
+        return self._replay(g)
+
+    def _capture(self, batch: dict, ctx) -> _Graph:
+        """The graph of ``_forward`` over static copies of ``batch`` and
+        ``ctx``, after one eager warm-up on the capture stream; the
+        kernel counters are put back to what they were before both."""
+        static = {k: v.clone() for k, v in batch.items()}
+        static_ctx = None
+        if ctx is not None:
+            static_ctx = empty_ctx(ctx)
+            load_ctx(static_ctx, ctx)
+        before = counts()
+        cur = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            self._forward(static, static_ctx)
+        cur.wait_stream(self._stream)
+        take_back(before)     # the warm-up's launches: the replay makes them
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            out = self._forward(static, static_ctx)
+        made = take_back(before)     # nothing ran
+        return _Graph(graph, static, static_ctx, out, made)
+
+    def _replay(self, g: _Graph) -> tuple:
+        """Replay ``g``; returns its outputs copied (pinned, in stream
+        order) to the host and the event after the copies.  The replay,
+        the copies and the event are all on this imputer's card's current
+        stream, whichever card is the current device."""
+        g.graph.replay()
+        advance(g.counts)
+        out = tuple(t.to("cpu", non_blocking=True, copy=True) for t in g.out)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return out, ready
+
     @torch.inference_mode()
     def impute(self, target: VCFData, pop: int | None = None
                ) -> ImputationResult:
@@ -257,8 +372,10 @@ class Imputer:
         Spans (``utils/timing.py``): ``imputer.call`` around all of it,
         ``imputer.window_context`` around each context built,
         ``imputer.assembly_wait`` around each wait on the assembly thread,
-        ``imputer.launch`` around each device batch's copies and enqueue,
-        ``imputer.drain`` around each batch's fetch and scatter."""
+        ``imputer.launch`` around each device batch's copies and enqueue
+        (its replay on the card, and ``imputer.capture`` inside it around
+        a graph's capture), ``imputer.drain`` around each batch's fetch
+        and scatter."""
         with span("imputer.call"):
             return self._impute(target, pop)
 
@@ -322,8 +439,10 @@ class Imputer:
                      "het": row["het"], "hom": row["hom"]}
             const = {k: self._tensor(v) for k, v in const.items()}
 
-            def scatter(b0, b1, nb, out):
+            def scatter(b0, b1, nb, out, ready):
                 with span("imputer.drain"):
+                    if ready is not None:      # a replay's host copies
+                        ready.synchronize()
                     if self.data_group is not None:   # every data rank's
                         out = (comm.all_gather(t, self.data_group)
                                .flatten(0, 1) for t in out)
@@ -334,7 +453,8 @@ class Imputer:
                     gtp[s:e, b0:b1] = pg[:nb, 1: 1 + n].transpose(1, 0, 2)
 
             # Outputs are fetched a few batches behind the launches: the
-            # depth bound caps device-resident outputs at O(depth) batches.
+            # depth bound caps the outputs held (on the device, or in pinned
+            # host memory behind a replay) at O(depth) batches.
             pending = []
             for b0 in range(0, n_samp, bs):
                 b1 = min(b0 + bs, n_samp)
@@ -348,12 +468,14 @@ class Imputer:
 
                 mine = self.rows
                 with span("imputer.launch"):
-                    haps = {"hap_1": self._tensor(
-                                pad_rows(toks1[b0:b1])[mine]),
-                            "hap_2": self._tensor(
-                                pad_rows(toks2[b0:b1])[mine])}
-                    pending.append((b0, b1, nb,
-                                    self._forward({**haps, **const}, ctx)))
+                    batch = {"hap_1": self._tensor(
+                                 pad_rows(toks1[b0:b1])[mine]),
+                             "hap_2": self._tensor(
+                                 pad_rows(toks2[b0:b1])[mine]), **const}
+                    out = (self._graph_forward(batch, ctx, b0 == 0)
+                           if self.use_graphs
+                           else (self._forward(batch, ctx), None))
+                    pending.append((b0, b1, nb, *out))
                 if len(pending) > self.pipeline_depth:
                     scatter(*pending.pop(0))
             if w + 1 < len(self.windows):

@@ -51,6 +51,8 @@ import numpy as np
 import torch
 
 from ..models.layers import RecomputeDraws, set_recompute_draws
+from ..utils.graphs import (advance, counters, counts, ctx_sig, empty_ctx,
+                             load_ctx, take_back)
 from ..utils.timing import span
 from . import metrics
 from .schedule import Optimizer
@@ -74,36 +76,6 @@ def _leaves(tree: dict) -> list[torch.Tensor]:
     for v in tree.values():
         out.extend(_leaves(v) if isinstance(v, dict) else [v])
     return out
-
-
-def _counters() -> list[tuple[str, object, str]]:
-    """The per-call counters a replay must advance, as (name, holder,
-    attribute): every kernel wrapper's ``launches`` and
-    ``Int8Dense.calls``."""
-    from ..ops import WRAPPERS
-    from ..ops.quant import Int8Dense
-
-    return [(name, fn, "launches") for name, fn in WRAPPERS.items()] + \
-        [("Int8Dense", Int8Dense, "calls")]
-
-
-def _counts() -> list[int]:
-    return [getattr(h, a) for _, h, a in _counters()]
-
-
-def _tensor_sig(t: torch.Tensor | None):
-    return None if t is None else (tuple(t.shape), t.dtype)
-
-
-def _ctx_sig(ctx):
-    """What a graph fixes of a window context: its type, its tensors'
-    shapes and types, and its other fields (a process group by identity)."""
-    if ctx is None:
-        return None
-    return (type(ctx),) + tuple(
-        _tensor_sig(v) if v is None or isinstance(v, torch.Tensor)
-        else (v if isinstance(v, (int, str)) else id(v))
-        for v in (getattr(ctx, f.name) for f in dataclasses.fields(ctx)))
 
 
 @dataclasses.dataclass
@@ -150,7 +122,7 @@ class ChunkRunner:
         self.graphs: dict = {}
         self.replays = 0
         # kernel launches (and Int8Dense calls) made inside replays
-        self.replayed = {name: 0 for name, _, _ in _counters()}
+        self.replayed = {name: 0 for name, _, _ in counters()}
         self._gens: list[torch.Generator] = []        # micro-step j's
         self._replay_gens: list[list[torch.Generator]] = []
         self._ctx: dict = {}     # signature -> [static context, source]
@@ -198,19 +170,12 @@ class ChunkRunner:
         another window's than the last one seen."""
         if ctx is None:
             return None
-        sig = _ctx_sig(ctx)
+        sig = ctx_sig(ctx)
         slot = self._ctx.get(sig)
         if slot is None:
-            static = dataclasses.replace(ctx, **{
-                f.name: torch.empty_like(getattr(ctx, f.name))
-                for f in dataclasses.fields(ctx)
-                if isinstance(getattr(ctx, f.name), torch.Tensor)})
-            slot = self._ctx[sig] = [static, None]
+            slot = self._ctx[sig] = [empty_ctx(ctx), None]
         if slot[1] is None or slot[1]() is not ctx:
-            for f in dataclasses.fields(ctx):
-                src = getattr(ctx, f.name)
-                if isinstance(src, torch.Tensor):
-                    getattr(slot[0], f.name).copy_(src)
+            load_ctx(slot[0], ctx)
             slot[1] = weakref.ref(ctx)
         return slot[0]
 
@@ -291,7 +256,7 @@ class ChunkRunner:
             graph = torch.cuda.CUDAGraph()
             for g in gens + [r for rs in replay for r in rs]:
                 graph.register_generator_state(g)
-            before = _counts()
+            before = counts()
             set_recompute_draws(RecomputeDraws(gens, replay))
             try:
                 # on the warm-up's stream: the autograd nodes that
@@ -306,11 +271,8 @@ class ChunkRunner:
         finally:
             # the warm-up's hold on the pool (the graph holds its own)
             torch._C._cuda_releasePool(dev, self._pool)
-        after = _counts()
-        for (_, h, a), c in zip(_counters(), before):   # nothing ran
-            setattr(h, a, c)
-        return _Graph(graph, static, sched, out,
-                      [x - y for x, y in zip(after, before)], offsets)
+        made = take_back(before)     # nothing ran
+        return _Graph(graph, static, sched, out, made, offsets)
 
     def _replay(self, batches: dict, ctx, plan, rows, step: int) -> dict:
         n = len(plan)
@@ -318,7 +280,7 @@ class ChunkRunner:
         key = (tuple((a, u is not None) for a, u in plan),
                tuple((k, tuple(v.shape), v.dtype)
                      for k, v in sorted(batches.items())),
-               _ctx_sig(ctx), torch.are_deterministic_algorithms_enabled())
+               ctx_sig(ctx), torch.are_deterministic_algorithms_enabled())
         g = self.graphs.get(key)
         if g is None:
             with span("dispatch.capture"):
@@ -332,7 +294,7 @@ class ChunkRunner:
         self._seed(step, n, g.offsets)
         g.graph.replay()
         self.replays += 1
-        for (name, h, a), c in zip(_counters(), g.counts):
-            setattr(h, a, getattr(h, a) + c)
+        advance(g.counts)
+        for name, c in zip(self.replayed, g.counts):
             self.replayed[name] += c
         return g.out

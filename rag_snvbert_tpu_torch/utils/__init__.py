@@ -1,3 +1,4 @@
 """Utilities of the port: completion-forced timing (``benchmarking``),
 program spans and the profiler capture (``timing``), checkpoint restore
-(``ckpt``) and run analysis (``analyze``)."""
+(``ckpt``), run analysis (``analyze``) and what the trainer's and the
+imputer's CUDA graphs share (``graphs``)."""

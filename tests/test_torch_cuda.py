@@ -318,6 +318,128 @@ def test_small_model_serves_on_the_card_like_on_the_cpu(cuda):
     assert d.mean() <= 5e-3 and d.max() <= 0.05
 
 
+def _graph_and_eager_runs(rag_mode, device="cuda", pipeline_depth=8,
+                          stall=0):
+    """The smoke model's imputer in ``rag_mode`` on ``device``, called
+    with a CUDA graph of ``_forward`` (the first call captures it), with
+    the eager ``_forward`` (graphs off) and with the graph again, on the
+    same batches: 10 targets at batch 4 over 2 windows, the last batch of
+    each window ragged.  ``stall``: cycles the card spins before each
+    graph call, so the host runs ahead of the replays.  Returns the
+    imputer and each call's (result, launch counts)."""
+    from rag_snvbert_tpu_torch.config import PRESETS, build_model
+    from rag_snvbert_tpu_torch.infer.imputer import Imputer
+    from rag_snvbert_tpu_torch.io.synthetic import make_bundle
+
+    cfg = PRESETS["smoke"]
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, flash_attention="splash", rag_mode=rag_mode))
+    b = make_bundle(n_train_samples=10, n_ref_samples=24, n_sites=256,
+                    n_windows=2, seed=5)
+    keep = np.random.default_rng(0).random(b.train.n_variants) > 0.5
+    target = dataclasses.replace(
+        b.train, gt=b.train.gt[keep], pos=b.train.pos[keep],
+        chrom=b.train.chrom[keep], ref=b.train.ref[keep],
+        alt=b.train.alt[keep], ids=b.train.ids[keep])
+    imp = Imputer(build_model(cfg, b.vocab.size, seed=1), b.ref, b.freq,
+                  seq_len=138, window_len=128, ref_pad_haps=64,
+                  batch_size=4, rag_mode=rag_mode, device=device,
+                  pipeline_depth=pipeline_depth)
+    assert imp.use_graphs and len(imp.windows) == 2
+    runs = []
+    for graphs in (True, False, True):
+        imp.use_graphs = graphs
+        ops.reset_launches()
+        if graphs and stall:
+            with torch.cuda.device(imp.device):
+                torch.cuda._sleep(stall)
+        res = imp.impute(target)
+        runs.append((res, ops.launch_counts()))
+    return imp, runs
+
+
+def _assert_graph_bits(imp, runs):
+    """Both graph calls give the eager call's bits; one capture, a replay
+    a batch."""
+    (g1, _), (eager, _), (g2, _) = runs
+    for got in (g1, g2):
+        for f in ("hap1_prob", "hap2_prob", "gt_prob", "imputed_flag"):
+            np.testing.assert_array_equal(getattr(got, f),
+                                          getattr(eager, f), err_msg=f)
+    assert imp.graph_captures == len(imp._graphs) == 1
+    assert imp.graph_replays == 2 * 2 * 3
+
+
+@pytest.mark.parametrize("rag_mode", ["embedding", "token", "none"])
+def test_imputer_graph_replays_give_the_eager_bits(cuda, rag_mode):
+    """Calls with a CUDA graph of ``_forward`` against one with the eager
+    ``_forward`` on the same batches (``_graph_and_eager_runs``): the same
+    bits and the same kernel launches; one capture, a replay a batch."""
+    imp, runs = _graph_and_eager_runs(rag_mode)
+    (_, c1), (_, c0), (_, c2) = runs
+    assert c1 == c0 == c2
+    assert c0["attention"] > 0 and c0["layer_norm"] > 0
+    assert c0["l2_topk"] == (2 * 3 if rag_mode == "embedding" else 0)
+    assert c0["l2_topk_rf"] == (2 * 3 if rag_mode == "token" else 0)
+    _assert_graph_bits(imp, runs)
+
+
+def test_imputer_graph_replays_on_a_second_card(cuda):
+    """An imputer on ``cuda:1`` while ``cuda:0`` stays the current device:
+    the replays, their copies out and the events the drain waits on are
+    all on ``cuda:1``'s stream, so the graph calls give the eager call's
+    bits.  The card spins before each graph call and each batch is
+    drained right after the next one's replay (pipeline depth 1), so a
+    drain that waited on the wrong card would read host buffers the
+    copies have not filled."""
+    _second_card()
+    _graph_and_eager_runs("embedding")     # the kernels first on cuda:0
+    imp, runs = _graph_and_eager_runs("embedding", device="cuda:1",
+                                      pipeline_depth=1, stall=10 ** 9)
+    assert torch.cuda.current_device() == 0
+    assert next(imp.model.parameters()).device == torch.device("cuda:1")
+    _assert_graph_bits(imp, runs)
+
+
+def _second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("op", ["l2_topk", "l2_topk_rf", "l2_topk_float"])
+def test_searches_run_on_each_card_of_a_process(op):
+    """A search kernel launched on ``cuda:0`` and then, in the same
+    process, on ``cuda:1`` (``cuda:0`` still the current device) gives
+    the same bits there: its shared memory limit is a per-device
+    attribute, raised on each card it runs on."""
+    from rag_snvbert_tpu_torch.ops.l2_topk_float import l2_topk_float
+    from rag_snvbert_tpu_torch.ops.l2_topk_rf import l2_topk_rf
+
+    _second_card()
+    if op == "l2_topk":
+        gen = torch.Generator(device="cuda:0").manual_seed(5)
+        args = (_bf16((48, 4104), gen, "cuda:0"),
+                _bf16((2048, 4104), gen, "cuda:0"))
+        args += (l2_ref.squared_norms(args[1]), 8)
+        fn = l2_topk
+    elif op == "l2_topk_rf":
+        args = _int8_case(64, 4100, 2040, 8, 3, "cuda:0") + (128, 8)
+        fn = l2_topk_rf
+    else:
+        args = _float_case(130, 20000, 4096, torch.float32, 11,
+                           "cuda:0") + (32,)
+        fn = l2_topk_float
+    first = fn(*args)
+    on_1 = [a.to("cuda:1") if isinstance(a, torch.Tensor) else a
+            for a in args]
+    second = fn(*on_1)
+    assert torch.cuda.current_device() == 0
+    assert second[0].device == torch.device("cuda:1")
+    for x, y in zip(first, second):
+        assert torch.equal(x, y.cpu().to(x.device))
+
+
 def test_small_model_trains_on_the_card_like_on_the_cpu(cuda):
     from rag_snvbert_tpu_torch.config import PRESETS, build_model
     from rag_snvbert_tpu_torch.data.pipeline import WindowDataset

@@ -35,7 +35,8 @@ PARENT = {"trainer.window_context": "trainer.epoch",
           "imputer.window_context": "imputer.call",
           "imputer.assembly_wait": "imputer.call",
           "imputer.launch": "imputer.call",
-          "imputer.drain": "imputer.call"}
+          "imputer.drain": "imputer.call",
+          "imputer.capture": "imputer.launch"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -174,7 +175,25 @@ def test_imputer_spans_nest_and_count(tmp_path):
     assert _count(spans, "imputer.assembly_wait") == n_win
     assert _count(spans, "imputer.launch") == 3 * n_win
     assert _count(spans, "imputer.drain") == 3 * n_win
+    assert _count(spans, "imputer.capture") == 0      # no graphs on the CPU
     assert imp.rows_padded == 2 * n_win
+
+
+def test_imputer_capture_span_sits_in_the_launch(tmp_path, monkeypatch):
+    """With graphs (the capture a CPU stand-in): one ``imputer.capture``,
+    inside the first batch's ``imputer.launch``; the other spans as
+    eager."""
+    from test_torch_imputer_graphs import use_stand_in
+
+    use_stand_in(monkeypatch)
+    imp, target = _imputer(batch_size=4)
+    imp.use_graphs = True
+    spans = _check_nesting(
+        _traced(tmp_path, lambda: imp.impute(target)), IMPUTE)
+    n_win = len(imp.windows)
+    assert _count(spans, "imputer.capture") == imp.graph_captures == 1
+    assert _count(spans, "imputer.launch") == imp.graph_replays == 3 * n_win
+    assert _count(spans, "imputer.drain") == 3 * n_win
 
 
 def test_spans_record_on_the_capturing_thread_only(tmp_path):
