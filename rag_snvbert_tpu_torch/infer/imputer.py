@@ -17,27 +17,19 @@ the result is the single-process one.
 On the card without a mesh each device batch is one replay of a CUDA
 graph of ``_forward`` (retrieval, the encoder, the heads and their
 softmaxes), so the host issues a few calls a batch where it issued
-hundreds of launches.  A replay gives ``_forward``'s bits:
-
-- one graph per key: the batch's shapes and types (rows are padded to
-  ``batch_size``), the window context's signature (``utils.graphs``)
-  and ``rag_mode``; all share one memory pool;
-- the graph reads static buffers, filled in stream order before the
-  replay: ``hap_1`` and ``hap_2`` for every batch, the window's
-  ``_WINDOW_CONST`` rows and context at the window's first batch (the
-  next window's context is built after this window's replays, so one
-  static context a key is enough);
-- each replay's outputs are copied out of the graph's buffers behind it,
-  before the next replay can rewrite them, into pinned host memory, with
-  an event: the output pipeline's drain of a batch waits for that batch
-  alone, while later replays run (a plain ``.cpu()`` would wait for every
-  replay queued, and the card would idle through each drain);
-- before a key's capture, ``_forward`` runs once eagerly on the capture
-  stream (kernels loaded, cuBLAS handles made).  The kernel wrappers'
-  counts of the warm-up and the capture are taken back and a replay adds
-  the graph's own (``utils.graphs``), so ``ops.launch_counts()`` reads as
-  the eager path's.
-  A capture that fails raises: the card never falls back to eager.
+hundreds of launches.  The graphs are ``utils.graphs.Graphs``' (a
+warm-up before each capture, one static window context a signature,
+launch counts that read as the eager path's), one a key: the batch's
+shapes and types (rows are padded to ``batch_size``), the window
+context's signature and ``rag_mode``.  A replay gives ``_forward``'s
+bits: its static inputs are filled in stream order before it (``hap_1``
+and ``hap_2`` every batch, the window's ``_WINDOW_CONST`` rows and
+context at the window's first batch), and its outputs are copied out of
+the graph's buffers behind it, before the next replay can rewrite them,
+into pinned host memory, with an event: the output pipeline's drain of a
+batch waits for that batch alone, while later replays run (a plain
+``.cpu()`` would wait for every replay queued, and the card would idle
+through each drain).
 
 The CPU, and any mesh (gloo cannot be captured; NCCL meshes have not
 been), run ``_forward`` eagerly.
@@ -64,8 +56,7 @@ from ..parallel.mesh import DATA_AXIS, axis_group, data_sharding
 from ..train.retrieval import (TokenWindowContext, WindowRefContext,
                                build_token_window_ctx, check_int8_vocab,
                                encode_window_refs, retrieve, retrieve_tokens)
-from ..utils.graphs import (advance, counts, ctx_sig, empty_ctx, load_ctx,
-                             take_back)
+from ..utils.graphs import Graphs
 from ..utils.timing import span
 
 
@@ -94,15 +85,6 @@ class ImputationResult:
                           self.hap2_prob, imputed_flag=self.imputed_flag)
 
 
-@dataclasses.dataclass
-class _Graph:
-    graph: torch.cuda.CUDAGraph
-    batch: dict        # the static inputs: hap_1, hap_2 and the window rows
-    ctx: object        # the static window context (None without RAG)
-    out: tuple         # p1, p2, pgt: the graph's outputs, rewritten a replay
-    counts: list[int]  # launches (and Int8Dense calls) a replay makes
-
-
 class Imputer:
     """Impute target samples onto the reference panel's site list.
 
@@ -128,7 +110,7 @@ class Imputer:
     without a mesh (module docstring), not a setting.  Code that hooks
     into ``_forward`` and must see it run for every batch (a recorder of
     the retrieval, a test against the eager path) turns it off on its
-    instance.  ``graph_captures`` and ``graph_replays`` count the CUDA
+    instance.  ``graphs.captures`` and ``graphs.replays`` count the CUDA
     graphs of ``_forward`` captured and the device batches run as their
     replays (both stay 0 while ``use_graphs`` is False).  One call at a
     time: the replays share their graph's static buffers."""
@@ -173,11 +155,7 @@ class Imputer:
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self.rows_padded = 0      # device batch rows beyond the samples
         self.use_graphs = self.device.type == "cuda" and mesh is None
-        self.graph_captures = 0
-        self.graph_replays = 0
-        self._graphs: dict = {}
-        self._pool = None
-        self._stream = None       # warm-ups and captures run on it
+        self.graphs = Graphs(self.device)
         n = ref_vcf.n_variants
         if window is not None:
             self.windows = [(int(s), int(min(e, n)))
@@ -302,60 +280,26 @@ class Imputer:
 
     def _graph_forward(self, batch: dict, ctx, new_window: bool):
         """``_forward(batch, ctx)`` as a replay of its key's graph,
-        captured on the key's first batch; ``new_window``: the batch is
-        its window's first (the window rows and context are loaded).
-        Returns ``_replay``'s host copies of the outputs and their
-        event."""
+        captured at the key's first batch; ``new_window``: the batch is
+        its window's first (the window rows are loaded).  Returns the
+        outputs copied (pinned, in stream order) to the host and the event
+        after the copies: the replay, the copies and the event are all on
+        this imputer's card's current stream, whichever card is the
+        current device."""
+        sig, static_ctx = self.graphs.context(ctx)
         key = (tuple((k, tuple(v.shape), v.dtype)
-                     for k, v in sorted(batch.items())),
-               ctx_sig(ctx), self.rag_mode)
-        g = self._graphs.get(key)
+                     for k, v in sorted(batch.items())), sig, self.rag_mode)
+        g = self.graphs.by_key.get(key)
         if g is None:
-            with span("imputer.capture"):
-                g = self._graphs[key] = self._capture(batch, ctx)
-            self.graph_captures += 1
+            static = {k: v.clone() for k, v in batch.items()}
+            g = self.graphs.capture(
+                key, "imputer.capture",
+                lambda: self._forward(static, static_ctx), static)
         else:
             for k, v in batch.items():
                 if new_window or k not in self._WINDOW_CONST:
-                    g.batch[k].copy_(v)
-            if new_window and ctx is not None:
-                load_ctx(g.ctx, ctx)
-        self.graph_replays += 1
-        return self._replay(g)
-
-    def _capture(self, batch: dict, ctx) -> _Graph:
-        """The graph of ``_forward`` over static copies of ``batch`` and
-        ``ctx``, after one eager warm-up on the capture stream; the
-        kernel counters are put back to what they were before both."""
-        static = {k: v.clone() for k, v in batch.items()}
-        static_ctx = None
-        if ctx is not None:
-            static_ctx = empty_ctx(ctx)
-            load_ctx(static_ctx, ctx)
-        before = counts()
-        cur = torch.cuda.current_stream(self.device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
-        self._stream.wait_stream(cur)
-        with torch.cuda.stream(self._stream):
-            self._forward(static, static_ctx)
-        cur.wait_stream(self._stream)
-        take_back(before)     # the warm-up's launches: the replay makes them
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            out = self._forward(static, static_ctx)
-        made = take_back(before)     # nothing ran
-        return _Graph(graph, static, static_ctx, out, made)
-
-    def _replay(self, g: _Graph) -> tuple:
-        """Replay ``g``; returns its outputs copied (pinned, in stream
-        order) to the host and the event after the copies.  The replay,
-        the copies and the event are all on this imputer's card's current
-        stream, whichever card is the current device."""
-        g.graph.replay()
-        advance(g.counts)
+                    g.inputs[k].copy_(v)
+        self.graphs.replay(g)
         out = tuple(t.to("cpu", non_blocking=True, copy=True) for t in g.out)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(self.device))

@@ -30,29 +30,21 @@ A replay equals the chunk's single steps, bit for bit:
   place, and each micro-step's loss and gradient norm land in the graph's
   ``[K]`` output buffers.
 
-There is one graph per key (the chunk's length and update pattern, the
-batch's and the context's shapes and types, deterministic mode); all share
-one memory pool.  Before a key's capture its body runs once eagerly on a
-side stream (cuBLAS handles, kernels loaded, autograd's streams), from a
-copy of the state it changes that is then put back, so the warm-up
-changes nothing of the run.  A kernel wrapper counts one launch at
-capture, where nothing runs; the runner takes that back and adds each
-graph's captured launches (and ``Int8Dense`` calls) at every replay.  A
-capture that fails raises: the card never runs a chunk eagerly instead.
+A graph is captured per key (the chunk's length and update pattern, the
+batch's and the context's shapes and types, deterministic mode) by
+``utils.graphs.Graphs``, after an eager warm-up from a copy of the state
+the chunk changes, which is then put back; the warm-up's and the
+capture's launch counts are taken back and each replay adds the graph's
+own, so ``ops.launch_counts()`` reads as K single steps'.
 """
 
 from __future__ import annotations
-
-import dataclasses
-import functools
-import weakref
 
 import numpy as np
 import torch
 
 from ..models.layers import RecomputeDraws, set_recompute_draws
-from ..utils.graphs import (advance, counters, counts, ctx_sig, empty_ctx,
-                             load_ctx, take_back)
+from ..utils.graphs import Graphs
 from ..utils.timing import span
 from . import metrics
 from .schedule import Optimizer
@@ -78,16 +70,6 @@ def _leaves(tree: dict) -> list[torch.Tensor]:
     return out
 
 
-@dataclasses.dataclass
-class _Graph:
-    graph: torch.cuda.CUDAGraph
-    batches: dict          # the static [K, ...] batch
-    sched: torch.Tensor    # [U, 3] update rows
-    out: dict              # "loss", "grad_norm": [K] float32
-    counts: list[int]      # launches (and Int8Dense calls) a replay makes
-    offsets: list          # RecomputeDraws offsets a micro-step
-
-
 def check_capturable(mesh) -> None:
     """Raise ``ValueError`` for a combination whose chunk cannot be
     captured on the card: a process group over gloo (its collectives
@@ -108,26 +90,22 @@ class ChunkRunner:
     """Runs chunks of micro-steps of one trainer (``train_steps``), one
     dispatch each; ``acc`` is the epoch accumulator the chunks add into
     (``zero_acc()`` at an epoch's start).  ``seed``: the run's dropout
-    seed; ``data_group``, ``rows``: as ``train_step``'s."""
+    seed; ``data_group``, ``rows``: as ``train_step``'s.  ``graphs``: the
+    chunks' CUDA graphs on the card (``utils.graphs.Graphs``; None on the
+    CPU, where the body runs eagerly)."""
 
     def __init__(self, model, optimizer: Optimizer, cfg: StepConfig,
                  seed: int, data_group=None, rows=None, mesh=None):
         self.model, self.optimizer, self.cfg = model, optimizer, cfg
         self.seed, self.data_group, self.rows = seed, data_group, rows
         self.device = optimizer.params[0].device
-        self.cuda = self.device.type == "cuda"
-        if self.cuda:
+        self.graphs = None
+        if self.device.type == "cuda":
             check_capturable(mesh)
+            self.graphs = Graphs(self.device)
         self.acc = epoch_accumulator(self.device)
-        self.graphs: dict = {}
-        self.replays = 0
-        # kernel launches (and Int8Dense calls) made inside replays
-        self.replayed = {name: 0 for name, _, _ in counters()}
         self._gens: list[torch.Generator] = []        # micro-step j's
         self._replay_gens: list[list[torch.Generator]] = []
-        self._ctx: dict = {}     # signature -> [static context, source]
-        self._pool = None
-        self._stream = None      # warm-ups and captures run on it
 
     def zero_acc(self) -> dict:
         for t in _leaves(self.acc):
@@ -153,7 +131,7 @@ class ChunkRunner:
             if row is not None:
                 rows.append(row)
         rows = np.stack(rows) if rows else np.zeros((0, 3), np.float32)
-        if not self.cuda:
+        if self.graphs is None:
             out = {k: torch.empty(n, device=self.device) for k in OUTPUTS}
             gens = [step_generator(self.seed, step + j, self.device)
                     for j in range(n)]
@@ -163,21 +141,7 @@ class ChunkRunner:
             return out
         return self._replay(batches, ctx, plan, rows, step)
 
-    # ---- the card ----
-
-    def _static_ctx(self, ctx):
-        """The static copy of ``ctx``'s tensors, refreshed when ``ctx`` is
-        another window's than the last one seen."""
-        if ctx is None:
-            return None
-        sig = ctx_sig(ctx)
-        slot = self._ctx.get(sig)
-        if slot is None:
-            slot = self._ctx[sig] = [empty_ctx(ctx), None]
-        if slot[1] is None or slot[1]() is not ctx:
-            load_ctx(slot[0], ctx)
-            slot[1] = weakref.ref(ctx)
-        return slot[0]
+    # ---- graphs ----
 
     def _generators(self, n: int, segments: list[int]):
         while len(self._gens) < n:
@@ -204,97 +168,56 @@ class ChunkRunner:
         return [*opt.params, *opt.mu, *opt.nu, *(opt.acc or []),
                 *_leaves(self.acc)]
 
-    def _capture(self, plan, batches: dict, ctx, rows, step: int) -> _Graph:
+    def _capture(self, key, plan, batches: dict, ctx, rows, step: int):
         n = len(plan)
-        static = {k: torch.empty_like(v) for k, v in batches.items()}
-        for k, v in batches.items():
-            static[k].copy_(v)
+        static = {k: v.clone() for k, v in batches.items()}
         sched = torch.zeros(max(len(rows), 1), 3, device=self.device)
+        _fill(sched, rows)
         out = {k: torch.empty(n, device=self.device) for k in OUTPUTS}
         gens, _ = self._generators(n, [0] * n)
-        body = functools.partial(
-            train_steps, self.model, self.optimizer, static, ctx, self.cfg,
-            gens, plan, sched, self.acc, out, self.data_group, self.rows)
-        for u, row in enumerate(rows):
-            for i, v in enumerate(row):
-                sched[u, i].fill_(float(v))
         self._seed(step, n, [[]] * n)
+        warm = RecomputeDraws(gens)   # records each segment's entry offset
+        draws = [warm]
 
-        # The warm-up: eager on the capture stream, its memory from the
-        # graphs' pool (free there between replays, so a new key's warm-up
-        # does not hold a second chunk's activations beside the pool);
-        # then the state it changed is put back.
-        state = self._state()
-        # detached: a clone of a parameter would make its gradient
-        # accumulator here, on this stream, and the capture's backward
-        # would then wait for this stream (a capture error)
-        saved = [t.detach().clone() for t in state]
-        record = RecomputeDraws(gens)
-        cur = torch.cuda.current_stream(self.device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
-        dev = self._stream.device_index
-        self._stream.wait_stream(cur)
-        with torch.cuda.stream(self._stream):
-            torch._C._cuda_beginAllocateCurrentStreamToPool(dev, self._pool)
-        try:
-            set_recompute_draws(record)
+        def body():
+            set_recompute_draws(draws[-1])
             try:
-                with torch.cuda.stream(self._stream):
-                    body()
+                train_steps(self.model, self.optimizer, static, ctx,
+                            self.cfg, gens, plan, sched, self.acc, out,
+                            self.data_group, self.rows)
             finally:
                 set_recompute_draws(None)
-                torch._C._cuda_endAllocateToPool(dev, self._pool)
-            cur.wait_stream(self._stream)
-            with torch.no_grad():
-                torch._foreach_copy_(state, saved)
-            del saved
+            return out
 
-            offsets = record.offsets
-            gens, replay = self._generators(n, [len(o) for o in offsets])
-            graph = torch.cuda.CUDAGraph()
-            for g in gens + [r for rs in replay for r in rs]:
-                graph.register_generator_state(g)
-            before = counts()
-            set_recompute_draws(RecomputeDraws(gens, replay))
-            try:
-                # on the warm-up's stream: the autograd nodes that
-                # accumulate the parameters' gradients keep the stream
-                # they were made on
-                with torch.cuda.graph(graph, pool=self._pool,
-                                      stream=self._stream,
-                                      capture_error_mode="thread_local"):
-                    body()
-            finally:
-                set_recompute_draws(None)
-        finally:
-            # the warm-up's hold on the pool (the graph holds its own)
-            torch._C._cuda_releasePool(dev, self._pool)
-        made = take_back(before)     # nothing ran
-        return _Graph(graph, static, sched, out, made, offsets)
+        def generators():
+            _, replay = self._generators(n, [len(o) for o in warm.offsets])
+            draws.append(RecomputeDraws(gens, replay))
+            return gens + [r for rs in replay for r in rs]
+
+        return self.graphs.capture(
+            key, "dispatch.capture", body, (static, sched, warm.offsets),
+            self._state(), generators)
 
     def _replay(self, batches: dict, ctx, plan, rows, step: int) -> dict:
-        n = len(plan)
-        static_ctx = self._static_ctx(ctx)
+        sig, static_ctx = self.graphs.context(ctx)
         key = (tuple((a, u is not None) for a, u in plan),
                tuple((k, tuple(v.shape), v.dtype)
                      for k, v in sorted(batches.items())),
-               ctx_sig(ctx), torch.are_deterministic_algorithms_enabled())
-        g = self.graphs.get(key)
+               sig, torch.are_deterministic_algorithms_enabled())
+        g = self.graphs.by_key.get(key)
         if g is None:
-            with span("dispatch.capture"):
-                g = self.graphs[key] = self._capture(plan, batches,
-                                                     static_ctx, rows, step)
+            g = self._capture(key, plan, batches, static_ctx, rows, step)
+        static, sched, offsets = g.inputs
         for k, v in batches.items():
-            g.batches[k].copy_(v)
-        for u, row in enumerate(rows):
-            for i, v in enumerate(row):
-                g.sched[u, i].fill_(float(v))
-        self._seed(step, n, g.offsets)
-        g.graph.replay()
-        self.replays += 1
-        advance(g.counts)
-        for name, c in zip(self.replayed, g.counts):
-            self.replayed[name] += c
+            static[k].copy_(v)
+        _fill(sched, rows)
+        self._seed(step, len(plan), offsets)
+        self.graphs.replay(g)
         return g.out
+
+
+def _fill(sched: torch.Tensor, rows) -> None:
+    """The update rows into the graph's buffer, in stream order."""
+    for u, row in enumerate(rows):
+        for i, v in enumerate(row):
+            sched[u, i].fill_(float(v))

@@ -366,8 +366,8 @@ def _assert_graph_bits(imp, runs):
         for f in ("hap1_prob", "hap2_prob", "gt_prob", "imputed_flag"):
             np.testing.assert_array_equal(getattr(got, f),
                                           getattr(eager, f), err_msg=f)
-    assert imp.graph_captures == len(imp._graphs) == 1
-    assert imp.graph_replays == 2 * 2 * 3
+    assert imp.graphs.captures == len(imp.graphs.by_key) == 1
+    assert imp.graphs.replays == 2 * 2 * 3
 
 
 @pytest.mark.parametrize("rag_mode", ["embedding", "token", "none"])
@@ -1725,6 +1725,9 @@ def test_v18_published_graphs_and_remat_are_bit_identical(cuda, tmp_path,
     for key, (p, r, _) in others.items():
         assert r == row, key
         assert all(torch.equal(p[n], v) for n, v in params.items()), key
+    # a graph's warm-up and capture launch nothing the counts keep
+    assert others[(4, False)][2] == launches
+    assert others[(4, True)][2] == others[(1, True)][2]
 
 
 def test_v18_published_imputes_on_the_card_like_on_the_cpu(cuda):

@@ -191,9 +191,26 @@ def test_imputer_capture_span_sits_in_the_launch(tmp_path, monkeypatch):
     spans = _check_nesting(
         _traced(tmp_path, lambda: imp.impute(target)), IMPUTE)
     n_win = len(imp.windows)
-    assert _count(spans, "imputer.capture") == imp.graph_captures == 1
-    assert _count(spans, "imputer.launch") == imp.graph_replays == 3 * n_win
+    assert _count(spans, "imputer.capture") == imp.graphs.captures == 1
+    assert _count(spans, "imputer.launch") == imp.graphs.replays == 3 * n_win
     assert _count(spans, "imputer.drain") == 3 * n_win
+
+
+def test_dispatch_capture_span_sits_in_the_chunk(tmp_path, monkeypatch):
+    """With graphs (the capture a CPU stand-in): one ``dispatch.capture``
+    a key (chunks of 3 and 1), each inside its chunk's
+    ``dispatch.chunk``; the other spans as eager."""
+    from rag_snvbert_tpu_torch.utils.graphs import Graphs
+    from test_torch_imputer_graphs import use_stand_in
+
+    use_stand_in(monkeypatch)
+    tr = _trainer(tmp_path / "run", 3)
+    tr.runner.graphs = Graphs(tr.device)
+    spans = _check_nesting(
+        _traced(tmp_path, lambda: tr._run_epoch(0, train=True)), TRAIN)
+    assert _count(spans, "dispatch.capture") == tr.runner.graphs.captures \
+        == 2
+    assert _count(spans, "dispatch.chunk") == tr.runner.graphs.replays == 4
 
 
 def test_spans_record_on_the_capturing_thread_only(tmp_path):
