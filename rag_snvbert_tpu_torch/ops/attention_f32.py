@@ -232,10 +232,10 @@ def attention_f32_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load("attention_f32", _SIGNATURES)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dsum = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
-    # each key block's part of dq, summed in a fixed order by the kernels
-    nkb = (l + 63) // 64
-    dq_parts = torch.empty(nkb, b * h, hd, 64 * nkb, dtype=torch.float32,
-                           device=q.device)
+    # each block of 128 keys' part of dq, summed in a fixed order by the
+    # kernels, over whole tiles of 64 query rows
+    dq_parts = torch.empty((l + 127) // 128, b * h, 64 * ((l + 63) // 64),
+                           hd, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.attention_f32_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -1458,7 +1458,11 @@ F32_RATE = 0.1
 # upstream V18 as published at batch 24 (48 sequences of 12 heads) and
 # V17 at batch 16 with its retrieved segments (64 sequences of 6 heads)
 F32_MAIN = [(48, 12, 1030, 32), (64, 6, 1030, 32)]
-F32_EDGE_LS = (1, 63, 64, 65, 127, 129, 1030)
+# the query tiles of 64 and the backward's blocks of 128 keys, the last of
+# which takes its own path when it holds at most 16 keys: L = 1, tile - 1,
+# tile, tile + 1, 2 blocks - 1, 2 blocks, 2 blocks + 1, a block + 16 and
+# + 17, and the main paths' 1030 (8 blocks and 6 keys)
+F32_EDGE_LS = (1, 63, 64, 65, 127, 129, 1030, 128, 144, 145, 255, 256, 257)
 
 
 def _f32_inputs(shape, dev, seed, rate):
@@ -1580,12 +1584,43 @@ def test_attention_f32_keys_with_a_shared_part_keep_dq_accurate(cuda):
     assert as_given[1] > 2 * theirs[1], (as_given[1], theirs[1])
 
 
-def test_attention_f32_runs_are_bit_identical(cuda):
-    q, k, v, do, keep = _f32_inputs(F32_MAIN[0], cuda, 3, F32_RATE)
+@pytest.mark.parametrize("shape", F32_MAIN)
+def test_attention_f32_runs_are_bit_identical(cuda, shape):
+    q, k, v, do, keep = _f32_inputs(shape, cuda, 3, F32_RATE)
     first = _f32_run(q, k, v, do, keep, F32_RATE)
     second = _f32_run(q, k, v, do, keep, F32_RATE)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", F32_MAIN)
+def test_attention_f32_bwd_is_its_three_kernels_once(cuda, shape):
+    """One backward call is one launch each of the row sums, the dk/dv pass
+    and the dq sum, and no other device work: the kernel names by which
+    ``benchmark/metrics/attention_f32_bwd_roofline.train.py`` reads the
+    backward's time and counts its calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.trace import kernel_class
+    from rag_snvbert_tpu_torch.ops.attention_f32 import (attention_f32_bwd,
+                                                         attention_f32_fwd)
+
+    q, k, v, do, keep = _f32_inputs(shape, cuda, 7, F32_RATE)
+    scale = shape[-1] ** -0.5
+    out, lse, bits = attention_f32_fwd(q, k, v, scale, keep, F32_RATE)
+    attention_f32_bwd(q, k, v, out, lse, do, scale, bits, F32_RATE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attention_f32_bwd(q, k, v, out, lse, do, scale, bits, F32_RATE)
+        torch.cuda.synchronize()
+    launches = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = kernel_class(e.name)
+            launches[name] = launches.get(name, 0) + 1
+    assert launches == {"attn_f32_dsum_kernel": 1,
+                        "attn_f32_bwd_dkv_kernel": 1,
+                        "attn_f32_bwd_dq_kernel": 1}, launches
 
 
 @pytest.mark.parametrize("l", (1, 65, 1030))
