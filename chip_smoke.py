@@ -221,6 +221,17 @@ LN_EPS = 1e-6
 F32_ATTN_SHAPE = (48, 12, 1030, 32)
 F32_ATTN_RATE = 0.1
 F32_ATTN_TOL = {"o": 1e-5, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+# The forward's parts a call, from the dropout's draws to o, at V18's shape
+# and V17's (64 sequences of 6 heads), and what they were before the
+# forward kernel compared the draws itself: the draw, the compare into a
+# bool mask, its packing and the forward (device ms; NVIDIA H100 80GB HBM3,
+# 700.00 W).
+F32_PARTS_SHAPES = (F32_ATTN_SHAPE, (64, 6, 1030, 32))
+F32_PARTS_BEFORE_MS = {
+    F32_ATTN_SHAPE: {"draw": 0.9405, "compare": 0.9734, "pack": 0.3846,
+                     "forward": 3.4042},
+    (64, 6, 1030, 32): {"draw": 0.6256, "compare": 0.6483, "pack": 0.2542,
+                        "forward": 2.2762}}
 
 
 def fail(msg: str) -> None:
@@ -566,27 +577,33 @@ def phase_layer_norm(gen) -> list[dict]:
 def phase_attention_f32(gen) -> list[dict]:
     """The float32 attention kernels with dropout at F32_ATTN_SHAPE against
     their plain versions, a rerun, and their device times (every kernel a
-    call launches: the mask's packing with the forward, the row sums with
+    call launches: the forward from the dropout's draws, the row sums with
     the backward) beside the bound, the plain versions, the einsum path
     the model ran before them (with the same mask) and PyTorch's
     memory-efficient ``scaled_dot_product_attention`` in float32 with
     dropout 0.1 (a yardstick of time only: its dropout draws its own
-    mask)."""
+    mask); then the forward's parts a call at F32_PARTS_SHAPES beside
+    F32_PARTS_BEFORE_MS."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from rag_snvbert_tpu_torch.ops.attention_f32 import (
         attention_f32_bwd, attention_f32_bwd_plain, attention_f32_fwd,
-        attention_f32_fwd_plain)
+        attention_f32_fwd_plain, pack_keep)
 
     b, h, l, hd = F32_ATTN_SHAPE
     rate, scale = F32_ATTN_RATE, hd ** -0.5
     q, k, v, do = (torch.randn(F32_ATTN_SHAPE, generator=gen, device="cuda")
                    for _ in range(4))
-    keep = torch.rand(b, h, l, l, generator=gen, device="cuda") >= rate
-    out, lse, bits = attention_f32_fwd(q, k, v, scale, keep, rate)
+    # the model hands the forward the draws; the plain versions and the
+    # einsum path take the bool mask they give
+    draws = torch.rand(b, h, l, l, generator=gen, device="cuda")
+    keep = draws >= rate
+    out, lse, bits = attention_f32_fwd(q, k, v, scale, draws, rate)
     grads = attention_f32_bwd(q, k, v, out, lse, do, scale, bits, rate)
     torch.cuda.synchronize()
+    check(torch.equal(bits, pack_keep(keep)), "the forward's bits from the "
+          "draws are not the packed mask")
     ref, ref_lse = attention_f32_fwd_plain(q, k, v, scale, keep, rate)
     ref_grads = attention_f32_bwd_plain(q, k, v, ref, ref_lse, do, scale,
                                         keep, rate)
@@ -601,7 +618,7 @@ def phase_attention_f32(gen) -> list[dict]:
           f"versions {errs} (tol {F32_ATTN_TOL})")
     check(all(errs[n] <= t for n, t in F32_ATTN_TOL.items()),
           "the float32 attention kernels disagree with their plain versions")
-    again = attention_f32_fwd(q, k, v, scale, keep, rate)
+    again = attention_f32_fwd(q, k, v, scale, draws, rate)
     again_grads = attention_f32_bwd(q, k, v, out, lse, do, scale, bits, rate)
     check(all(torch.equal(x, y) for x, y in zip(
         (out, lse, bits, *grads), (*again, *again_grads))),
@@ -613,7 +630,7 @@ def phase_attention_f32(gen) -> list[dict]:
         return sum(split.values()), split
 
     fwd, fwd_split = device_ms(
-        lambda: attention_f32_fwd(q, k, v, scale, keep, rate))
+        lambda: attention_f32_fwd(q, k, v, scale, draws, rate))
     bwd, bwd_split = device_ms(
         lambda: attention_f32_bwd(q, k, v, out, lse, do, scale, bits, rate))
     plain_fwd = time_ms(lambda: attention_f32_fwd_plain(
@@ -661,6 +678,15 @@ def phase_attention_f32(gen) -> list[dict]:
           f"{fwd_split}, backward by kernel {bwd_split}")
     check(fwd < ein_fwd and fwd + bwd < ein_both, "the float32 attention "
           "kernels are not faster than the einsum path")
+    del q, k, v, do, draws, keep, out, lse, bits, grads, leaves
+    torch.cuda.empty_cache()
+    for shape in F32_PARTS_SHAPES:
+        parts = _attention_f32_fwd_parts(gen, shape, rate)
+        before = F32_PARTS_BEFORE_MS[shape]
+        print(f"attention_f32 forward's parts a call at {list(shape)} "
+              f"(device ms): {parts} = {sum(parts.values()):.4f}; before "
+              f"the forward compared the draws: {before} = "
+              f"{sum(before.values()):.4f}")
     common = {"route": "cuda",
               "source": "rag_snvbert_tpu_torch/csrc/attention_f32.cu",
               "replaces": "none (the einsum path, "
@@ -675,6 +701,28 @@ def phase_attention_f32(gen) -> list[dict]:
              "ms": bwd, "plain_ms": plain_bwd, "bound_ms": bwd_b,
              "bound_by": bwd_by, "library_ms": lib_both - lib_fwd,
              "einsum_ms": ein_both - ein_fwd, "by_kernel": bwd_split}]
+
+
+def _attention_f32_fwd_parts(gen, shape, rate) -> dict[str, float]:
+    """Device ms of each part of a training forward of the float32
+    attention at ``shape``, from the dropout's draws to o: the draw
+    (``torch.rand``) and the forward from the draws."""
+    from rag_snvbert_tpu_torch.ops.attention_f32 import attention_f32_fwd
+
+    b, h, l, hd = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+
+    def draw():
+        return torch.rand(b, h, l, l, generator=gen, device="cuda")
+
+    draws = draw()
+    parts = {"draw": sum(kernel_ms(draw).values()),
+             "forward": sum(kernel_ms(lambda: attention_f32_fwd(
+                 q, k, v, hd ** -0.5, draws, rate)).values())}
+    del q, k, v, draws
+    torch.cuda.empty_cache()
+    return parts
 
 
 def _tie_aware(name, vals, ids, ref_vals, ref_ids, scale, dist_of) -> float:

@@ -14,8 +14,8 @@
 // probabilities in the backward.
 //
 // Semantics, for one head with s = q k^T * scale, p = softmax(s) by rows,
-// keep the mask the caller drew (models/layers.py::keep_mask: the draws of
-// models/layers.py::dropout) and r the rate:
+// r the rate and keep the mask the caller drew (models/layers.py::keep_draws
+// >= r, as models/layers.py::dropout draws it):
 //   o   = (keep ? p / (1 - r) : 0) v
 //   lse = log2(sum_j exp2(s_j * log2(e)))      (base 2, as attention.cu)
 //   dv  = (keep ? p / (1 - r) : 0)^T do
@@ -35,17 +35,24 @@
 // hide the latency of each.
 //
 // The forward, for head dim 32 (upstream V18's 12 heads of 32 and V17's 6):
-// SIMT, one head and 64 query rows a block of 128 threads, walking the keys
-// in tiles of 64.  Thread (ty, tx) = (tid / 16, tid % 16) holds rows ty + 8 i
-// (i < 8), score columns 4 tx + j (j < 4) and output columns 2 tx + c, so the
-// 16 threads of a row share a warp and reduce by xor shuffles.  A product
-// over hd is a sum of outer products from shared memory: the row operand
-// row-major (a float4 along hd a row, the same for the row's 16 threads), the
-// column operand transposed (a float4 along the tile's columns).  The score
-// tile goes through shared memory once, row-major, as the left operand of
-// the product with v.  Strides padded by 4 floats keep every access free of
-// bank conflicts.  Flash attention's online softmax.
-//
+// one head and 64 query rows a block of 128 threads, walking the keys in
+// tiles of 64 with flash attention's online softmax; 57 KB of shared memory
+// and 168 registers a thread, so three blocks, 12 warps an SM (at 128
+// registers, four blocks, it spilled and ran slower).  Warp w owns query
+// rows 16 w .. 16 w + 15: a thread holds 4 rows x 8 key columns of the
+// scores and 4 rows x 4 head columns of the output, and the dropped
+// probabilities reach the product with v through shared memory in the
+// warp's own rows, behind __syncwarp.  The operands share the backward's
+// swizzled layout (below).  k and v tiles arrive by cp.async into two
+// stages, a tile ahead: one barrier a tile.  With dropout the kernel takes
+// the caller's uniform draws [B, H, L, L] (models/layers.py::keep_draws),
+// keeps a score where its draw >= rate and writes the mask's bits for the
+// backward: a warp's draws of the next key tile arrive in registers while
+// it multiplies by v, a lane a column of each (row, word), so one ballot is
+// one mask word.  No separate pass reads the draws, and no bool mask [B, H,
+// L, L] is written.  Given a bool mask (the op's other entry), it reads the
+// bits that attn_f32_pack_kernel packed from it.
+
 // The backward is one pass over blocks of 128 keys (attn_f32_bwd_dkv_kernel):
 // a block keeps its keys' dk and dv over every query tile of 64 and writes
 // its part of dq (ds k over its keys) for each tile; attn_f32_bwd_dq_kernel
@@ -68,316 +75,34 @@
 // (L % 128 of them) runs four warps on every fourth tile each instead of one
 // warp on all.  exp2 is the MUFU's, flushed to zero below 2^-126.  The
 // mask is bits [bh, L, W], W = 2 ceil(L / 64) words a row (bit c % 32 of word
-// c / 32 is column c; bits past L are 0), packed once a forward by
-// attn_f32_pack_kernel; the backward reads the same bits.  Every sum has a
-// fixed order, so reruns are bit-identical.
+// c / 32 is column c; bits past L are 0), written by the forward (from the
+// draws, or packed from a bool mask by attn_f32_pack_kernel); the backward
+// reads the same bits.  Every sum has a fixed order, so reruns are
+// bit-identical.
+
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kTile = 64;             // rows a block; the other side's tile
-constexpr int kPad = 4;
-constexpr int kTS = kTile + kPad;     // stride of score and transposed tiles
-
+constexpr int kTile = 64;             // query rows of a forward block, and
+                                      // the tiles the kernels walk over
 constexpr int kHD = 32;               // head dim
-constexpr int kRS = kHD + kPad;       // stride of a row-major tile
-constexpr int kCols = kHD / 16;       // output columns a thread
+constexpr int kVecs = kHD / 4;        // float4 a row
 
 __device__ __forceinline__ float4 zero4() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// A tile is rows [0, 64) of a [rows, kHD] matrix, zero from row `valid`
-// on, fetched from device memory into registers (kFetch float4 a thread),
-// then put into shared memory row-major (stride kHD + 4) or transposed
-// ([kHD][kTS]), or both from one fetch.  A warp fetches 16 rows x 32 bytes
-// (whole sectors); its float4 stores of the row-major tile and its scalar
-// stores of the transposed one fall in distinct banks.
-constexpr int kVecs = kHD / 4;        // float4 a row
-constexpr int kFetch = kTile * kVecs / kThreads;
-using Regs = float4[kFetch];
-
-__device__ __forceinline__ void tile_at(int f, int& r, int& c) {
-  r = (f / (16 * kVecs)) * 16 + f % 16;
-  c = ((f / 16) % kVecs) * 4;
-}
-
-__device__ __forceinline__ void fetch(Regs& x, const float* src, int valid,
-                                      int tid) {
-#pragma unroll
-  for (int i = 0; i < kFetch; ++i) {
-    int r, c;
-    tile_at(tid + i * kThreads, r, c);
-    x[i] = r < valid
-               ? *reinterpret_cast<const float4*>(src + (size_t)r * kHD + c)
-               : zero4();
-  }
-}
-
-__device__ __forceinline__ void put_rows(float* dst, const Regs& x,
-                                         int tid) {
-#pragma unroll
-  for (int i = 0; i < kFetch; ++i) {
-    int r, c;
-    tile_at(tid + i * kThreads, r, c);
-    *reinterpret_cast<float4*>(dst + r * kRS + c) = x[i];
-  }
-}
-
-__device__ __forceinline__ void put_transposed(float* dst, const Regs& x,
-                                               int tid) {
-#pragma unroll
-  for (int i = 0; i < kFetch; ++i) {
-    int r, c;
-    tile_at(tid + i * kThreads, r, c);
-    dst[(c + 0) * kTS + r] = x[i].x;
-    dst[(c + 1) * kTS + r] = x[i].y;
-    dst[(c + 2) * kTS + r] = x[i].z;
-    dst[(c + 3) * kTS + r] = x[i].w;
-  }
-}
-
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int valid, int tid) {
-  Regs x;
-  fetch(x, src, valid, tid);
-  put_rows(dst, x, tid);
-}
-
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
-}
-
-// acc[i][j] += sum_d A[ty + 8 i][d] Bt[d][4 tx + j], i < R, d < D in order
-// (A row-major with stride AS, Bt transposed with stride kTS).
-template <int R, int D, int AS>
-__device__ __forceinline__ void outer_products(float (&acc)[R][4],
-                                               const float* A, const float* Bt,
-                                               int ty, int tx) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    float4 b[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      b[e] = *reinterpret_cast<const float4*>(Bt + (d + e) * kTS + 4 * tx);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(A + (ty + 8 * i) * AS + d);
-      fma4(acc[i], a.x, b[0]);
-      fma4(acc[i], a.y, b[1]);
-      fma4(acc[i], a.z, b[2]);
-      fma4(acc[i], a.w, b[3]);
-    }
-  }
-}
-
-// A score tile's products over hd: acc[i][j] += sum_d A[ty + 8 i][d]
-// Bt[d][4 tx + j] (A a row-major tile, stride kHD + 4).
-__device__ __forceinline__ void rows_by_cols(float (&acc)[8][4], const float* A,
-                                             const float* Bt, int ty, int tx) {
-  outer_products<8, kHD, kRS>(acc, A, Bt, ty, tx);
-}
-
-template <int C>
-__device__ __forceinline__ void load_cols(float (&out)[C], const float* p) {
-  static_assert(C == 2, "head dim 32: two output columns a thread");
-  const float2 x = *reinterpret_cast<const float2*>(p);
-  out[0] = x.x;
-  out[1] = x.y;
-}
-
-// acc[i][c] += sum_n P[ty + 8 i][n] B[n][C tx + c]   (P a score tile, stride
-// kTS; B row-major, stride kHD + 4), n in order.
-__device__ __forceinline__ void probs_by_rows(float (&acc)[8][kCols],
-                                              const float* P, const float* B,
-                                              int ty, int tx) {
-  constexpr int C = kCols;
-#pragma unroll 2
-  for (int n = 0; n < kTile; n += 4) {
-    float b[4][C];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      load_cols<C>(b[e], B + (n + e) * kRS + C * tx);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 p = *reinterpret_cast<const float4*>(P + (ty + 8 * i) * kTS + n);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float a = acc[i][c];
-        a = fmaf(p.x, b[0][c], a);
-        a = fmaf(p.y, b[1][c], a);
-        a = fmaf(p.z, b[2][c], a);
-        a = fmaf(p.w, b[3][c], a);
-        acc[i][c] = a;
-      }
-    }
-  }
-}
-
-// The 4 mask bits of query row `row`, columns n0 + 4 tx + j (bit j), or 0
-// past the last row.
-__device__ __forceinline__ uint32_t row_nibble(const uint32_t* bits, int row,
-                                               int L, int W, int n0, int tx) {
-  if (row >= L) return 0u;
-  return (bits[(size_t)row * W + n0 / 32 + tx / 8] >> (4 * (tx % 8))) & 0xFu;
-}
-
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-constexpr int kFwdSmemBytes = 4 * (2 * kTile * kRS + kHD * kTS + kTile * kTS);
-
-// Grid (ceil(L / 64), bh).  q, k, v, o [bh, L, kHD]; bits [bh, L, W] or
-// unused; lse [bh, L] or null.
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads) attn_f32_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const uint32_t* __restrict__ bits,
-    float* __restrict__ o, float* __restrict__ lse, int L, int W,
-    float scale_log2, float inv_keep) {
-  constexpr int RS = kRS, C = kCols;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [64][RS]
-  float* Kt = Qs + kTile * RS;                   // [kHD][kTS]
-  float* Vs = Kt + kHD * kTS;                    // [64][RS]
-  float* Ps = Vs + kTile * RS;                   // [64][kTS]
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y, m0 = blockIdx.x * kTile;
-  const size_t base = (size_t)bh * L * kHD;
-  const uint32_t* hbits = kDrop ? bits + (size_t)bh * L * W : nullptr;
-
-  load_rows(Qs, q + base + (size_t)m0 * kHD, L - m0, tid);
-  float m[8], l[8], acc[8][C];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int n0 = 0; n0 < L; n0 += kTile) {
-    Regs kx, vx;
-    fetch(kx, k + base + (size_t)n0 * kHD, L - n0, tid);
-    fetch(vx, v + base + (size_t)n0 * kHD, L - n0, tid);
-    __syncthreads();      // the last tile's readers are done
-    put_transposed(Kt, kx, tid);
-    put_rows(Vs, vx, tid);
-    __syncthreads();
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    rows_by_cols(s, Qs, Kt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint32_t keep =
-          kDrop ? row_nibble(hbits, m0 + ty + 8 * i, L, W, n0, tx) : 0xFu;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = n0 + 4 * tx + j < L ? s[i][j] * scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], row_max(mx));   // finite: a column is valid
-      const float alpha = exp2f(m[i] - mn);
-      m[i] = mn;
-      l[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-      float p[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = exp2f(s[i][j] - mn);
-        l[i] += e;
-        p[j] = (keep >> j) & 1u ? e : 0.f;
-      }
-      *reinterpret_cast<float4*>(Ps + (ty + 8 * i) * kTS + 4 * tx) =
-          make_float4(p[0], p[1], p[2], p[3]);
-    }
-    __syncthreads();
-    probs_by_rows(acc, Ps, Vs, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float lt = row_sum(l[i]);
-    const int row = m0 + ty + 8 * i;
-    if (row >= L) continue;
-    const float inv = inv_keep / lt;
-    float* out = o + base + (size_t)row * kHD + C * tx;
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[c] = acc[i][c] * inv;
-    if (lse != nullptr && tx == 0) lse[(size_t)bh * L + row] = m[i] + log2f(lt);
-  }
-}
-
-// dsum[r] = sum_c do[r][c] o[r][c], a thread a row.
-__global__ void attn_f32_dsum_kernel(const float* __restrict__ o,
-                                     const float* __restrict__ dout,
-                                     float* __restrict__ dsum, long long rows) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const float4* a = reinterpret_cast<const float4*>(o + r * kHD);
-  const float4* b = reinterpret_cast<const float4*>(dout + r * kHD);
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < kHD / 4; ++c) {
-    const float4 x = a[c], y = b[c];
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-    s = fmaf(x.z, y.z, s);
-    s = fmaf(x.w, y.w, s);
-  }
-  dsum[r] = s;
-}
-
-// ---- the backward's key-block pass ----
+// ---- tiles in shared memory (the forward and the backward) ----
 //
-// A block of 256 threads takes 128 key rows; warp w owns rows 16 w .. 16 w
-// + 15 of the scores' and their gradients' tiles, lane (g, t8) = (lane / 8,
-// lane % 8) rows 16 w + 4 g + i (i < 4).  Tiles of [rows][kHD] floats
-// (k, v, q, do) are swizzled: 16-byte group c of row r sits at group c ^
-// ((r / 4) % 8), so the 8 rows 4 t8 + j a warp reads at one group, the 4
-// rows 16 w + 4 g + i and the 8 groups of one row each fall in distinct
-// banks.  The [128][64] tile of p^T, then ds^T, swizzles its groups by
-// (r / 4) % 4.
-constexpr int kKeys = 2 * kTile;       // key rows a block
-constexpr int kBwdThreads = 256;       // 8 warps of 16 key rows
-constexpr int kHalf = kBwdThreads / 2; // the threads of a 64-key half (dq)
-constexpr int kMS = 5;   // a tile row's 4 mask words: stride 5, so the 8
-                         // rows 4 t8 + j a warp reads fall in 8 banks
-
-// the byte offsets of the dk/dv pass's shared tiles (dk's sums first)
-constexpr uint32_t kKsOff = 16 * 4 * kBwdThreads;
-constexpr uint32_t kVsOff = kKsOff + 4 * kKeys * kHD;
-constexpr uint32_t kQsOff = kVsOff + 4 * kKeys * kHD;
-constexpr uint32_t kOsOff = kQsOff + 4 * kTile * kHD;
-constexpr uint32_t kPsOff = kOsOff + 4 * kTile * kHD;
-constexpr uint32_t kXsOff = kPsOff + 4 * kKeys * kTile;
-constexpr uint32_t kLsOff = kXsOff + 4 * kTile * kHD;
-constexpr int kDkvSmemBytes = kLsOff + 4 * (2 * kTile + kTile * kMS);
-static_assert(4096 + 4 * (4 * kTile * kHD * 2 + 4 * 16 * kTile + 16 * 4 * 32 +
-                          3 * 4 * kTile) <= kDkvSmemBytes,
-              "the tail's four warp regions fit");
+// Tiles of [rows][kHD] floats are swizzled: 16-byte group c of row r sits at
+// group c ^ ((r / 4) % 8), so the 8 rows 4 t8 + j a warp reads at one group,
+// the 4 rows 16 w + 4 g + i and the 8 groups of one row each fall in
+// distinct banks (lane (g, t8) = (lane / 8, lane % 8) of warp w holds rows
+// 16 w + 4 g + i, i < 4, of a product).  Score tiles [rows][64] swizzle
+// their groups by (r / 4) % 4.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -423,13 +148,14 @@ __device__ __forceinline__ float at(const float4& x, int c) {
 }
 
 // rows [0, rows) of a [*, kHD] matrix from src (rows at or past `valid`
-// zeros) into the swizzled tile dst: one 16-byte group a thread and pass
-template <int kRows>
+// zeros) into the swizzled tile dst: one 16-byte group a thread and pass,
+// over the block's kNT threads
+template <int kRows, int kNT>
 __device__ __forceinline__ void fill_rows(float* dst, const float* src,
                                           int valid, int tid) {
 #pragma unroll
-  for (int u = 0; u < kRows * kVecs / kBwdThreads; ++u) {
-    const int f = tid + u * kBwdThreads, r = f / kVecs, c = f % kVecs;
+  for (int u = 0; u < kRows * kVecs / kNT; ++u) {
+    const int f = tid + u * kNT, r = f / kVecs, c = f % kVecs;
     const bool ok = r < valid;
     cp_async<16>(dst + at32(r, c, (r >> 2) & 7),
                  src + (ok ? (size_t)r * kHD + 4 * c : 0), ok);
@@ -452,24 +178,25 @@ __device__ __forceinline__ float4 lds(const char* sm, uint32_t off) {
   return *reinterpret_cast<const float4*>(sm + off);
 }
 
-// acc[i][j] += sum_d A[r + i][d] B[32 G + 4 t8 + j][d], d in order: A and B
-// swizzled [rows][kHD] tiles at byte offsets a_off, b_off of sm; rows r + i
-// (r a multiple of 4) share the swizzle sa, rows 32 G + 4 t8 + j the
-// swizzle t8.
-__device__ __forceinline__ void rows_by_rows(float (&acc)[4][4],
+// acc[i][4 G + j] += sum_d A[r + i][d] B[32 (G0 + G) + 4 t8 + j][d], G <
+// NG, d in order: A and B swizzled [rows][kHD] tiles at byte offsets a_off,
+// b_off of sm; rows r + i (r a multiple of 4) share the swizzle sa, rows
+// 32 G + 4 t8 + j the swizzle t8.
+template <int NG>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[4][4 * NG],
                                              const char* sm, uint32_t a_off,
                                              uint32_t b_off, int r, int sa,
-                                             int t8, int G) {
+                                             int t8, int G0) {
   const uint32_t a0 = a_off + r * 128 + (sa << 4);
-  const uint32_t b0 = b_off + (32 * G + 4 * t8) * 128 + (t8 << 4);
+  const uint32_t b0 = b_off + (32 * G0 + 4 * t8) * 128 + (t8 << 4);
 #pragma unroll
   for (int grp = 0; grp < kVecs; ++grp) {
     float4 a[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = lds(sm, (a0 ^ (grp << 4)) + i * 128);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 b = lds(sm, (b0 ^ (grp << 4)) + j * 128);
+    for (int j = 0; j < 4 * NG; ++j) {
+      const float4 b = lds(sm, (b0 ^ (grp << 4)) + (32 * (j / 4) + j % 4) * 128);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = acc[i][j];
@@ -484,8 +211,8 @@ __device__ __forceinline__ void rows_by_rows(float (&acc)[4][4],
 }
 
 // acc[i][c] += sum_n P[r + i][n] B[n][4 t8 + c], n0 <= n < n1 (multiples of
-// 16) in order: P the [kKeys][kTile] score tile at byte offset p_off, rows r
-// + i with swizzle g; B a swizzled [rows][kHD] tile at b_off.
+// 16) in order: P a [rows][kTile] score tile at byte offset p_off, rows r + i
+// with swizzle g; B a swizzled [rows][kHD] tile at b_off.
 __device__ __forceinline__ void probs_by_rows4(float (&acc)[4][4],
                                                const char* sm, uint32_t p_off,
                                                uint32_t b_off, int r, int g,
@@ -516,6 +243,268 @@ __device__ __forceinline__ void probs_by_rows4(float (&acc)[4][4],
     }
   }
 }
+
+// ---- the forward ----
+//
+// A block of 128 threads takes 64 query rows of one head; warp w owns rows
+// 16 w .. 16 w + 15, lane (g, t8) their scores at the key columns 32 G + 4 t8
+// + j (G < 2, j < 4) of a tile and their outputs at head columns 4 t8 + c.
+// Byte offsets of the shared tiles: q [64][kHD]; two stages of the k and v
+// tiles [64][kHD] each; the dropped probabilities [64][64] (warp w's rows
+// 16 w ..); the mask words of the tile [64][2] (warp w's 32 from 32 w).
+constexpr int kFwdThreads = 128;
+constexpr uint32_t kFQOff = 0;
+constexpr uint32_t kFKVOff = kFQOff + 4 * kTile * kHD;
+constexpr uint32_t kFStage = 2 * 4 * kTile * kHD;   // a stage's k, then v
+constexpr uint32_t kFPOff = kFKVOff + 2 * kFStage;
+constexpr uint32_t kFMOff = kFPOff + 4 * kTile * kTile;
+constexpr int kFwdSmemBytes = kFMOff + 4 * 2 * kTile;
+
+// Where the forward's dropout mask comes from.
+enum FwdMask { kNoMask, kMaskBits, kMaskDraws };
+
+// kMaskBits: `bits` [bh, L, W] is read.  kMaskDraws: the draws of head bh
+// are the [L, L] rows (stride L) at draws + (bh / heads) * sb + (bh % heads)
+// * sh; a score is kept where its draw >= rate, and `bits` receives the mask.
+struct FwdMaskArgs {
+  const float* draws;
+  long long sb, sh;
+  int heads;
+  float rate;
+  uint32_t* bits;
+};
+
+// Grid (ceil(L / 64), bh).  q, k, v, o [bh, L, kHD]; lse [bh, L] or null.
+// A warp's mask of a key tile is 32 (row, word) pairs, pair p = its row p /
+// 2, word p % 2 of the tile.  Per key tile t: one barrier (tile t's k and v
+// landed; every warp is done with tile t - 1); the next tile's k and v by
+// cp.async into the other stage; the warp's scores q k^T, the online
+// softmax, the dropped probabilities into its rows of the probability
+// tile; its product with v in two halves of 32 keys, with half of the next
+// tile's mask on the way into registers during each (from draws: lane c
+// loads column c of each pair, so that one ballot after the half is one
+// mask word, written to `bits` too).  Iteration -1 only fetches tile 0's
+// mask.  A warp past the last row only loads.
+template <int kMode>
+__global__ void __launch_bounds__(kFwdThreads, 3) attn_f32_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, FwdMaskArgs mask, float* __restrict__ o,
+    float* __restrict__ lse, int L, int W, float scale_log2,
+    float inv_keep) {
+  extern __shared__ float4 smem4[];
+  char* sm = reinterpret_cast<char*>(smem4);
+  float* P = reinterpret_cast<float*>(sm + kFPOff);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 8, t8 = lane % 8;
+  const int bh = blockIdx.y, m0 = blockIdx.x * kTile, r0 = m0 + 16 * warp;
+  const size_t base = (size_t)bh * L * kHD;
+  const bool active = r0 < L;             // the warp has a query row
+  const int ntiles = (L + kTile - 1) / kTile;
+  uint32_t* Mw = reinterpret_cast<uint32_t*>(sm + kFMOff) + 32 * warp;
+
+  // tile n / 64's k and v into stage st, one cp.async group
+  auto load_kv = [&](int n, int st) {
+    float* ks = reinterpret_cast<float*>(sm + kFKVOff + st * kFStage);
+    fill_rows<kTile, kFwdThreads>(ks, k + base + (size_t)n * kHD, L - n, tid);
+    fill_rows<kTile, kFwdThreads>(ks + kTile * kHD, v + base + (size_t)n * kHD,
+                                  L - n, tid);
+    cp_async_commit();
+  };
+  // Half h of the warp's mask of tile n / 64 (pairs 16 h ..) on its way:
+  // from draws, column n + 32 (p % 2) + lane of row r0 + 8 h + p / 2 in d[p]
+  // (-1, dropped, past L); from bits, lane p's word in `word` (h = 0).
+  float d[kMode == kMaskDraws ? 16 : 1];
+  uint32_t word = 0u;
+  auto fetch_mask = [&](int n, int h) {
+    if constexpr (kMode == kMaskDraws) {
+      const float* src = mask.draws + (bh / mask.heads) * mask.sb +
+                         (bh % mask.heads) * mask.sh +
+                         (size_t)(r0 + 8 * h) * L + n + lane;
+      if (r0 + 16 <= L && n + kTile <= L) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          d[2 * r] = __ldcs(src);
+          d[2 * r + 1] = __ldcs(src + 32);
+          src += L;
+        }
+      } else {
+        const bool c0 = n + lane < L, c1 = n + 32 + lane < L;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const bool row = r0 + 8 * h + r < L;
+          d[2 * r] = row && c0 ? __ldcs(src) : -1.f;
+          d[2 * r + 1] = row && c1 ? __ldcs(src + 32) : -1.f;
+          src += L;
+        }
+      }
+    } else if constexpr (kMode == kMaskBits) {
+      if (h == 0)
+        word = r0 + lane / 2 < L
+                   ? mask.bits[((size_t)bh * L + r0 + lane / 2) * W + n / 32 +
+                               lane % 2]
+                   : 0u;
+    }
+  };
+  // half h of the mask words of tile n / 64 into Mw (from draws, the
+  // second half writes the tile's words to `bits` too)
+  auto put_mask = [&](int n, int h) {
+    if constexpr (kMode == kMaskDraws) {
+#pragma unroll
+      for (int p = 0; p < 16; ++p)
+        Mw[16 * h + p] = __ballot_sync(0xffffffffu, d[p] >= mask.rate);
+      if (h == 1) {
+        __syncwarp();
+        if (r0 + lane / 2 < L)
+          mask.bits[((size_t)bh * L + r0 + lane / 2) * W + n / 32 + lane % 2] =
+              Mw[lane];
+      }
+    } else if constexpr (kMode == kMaskBits) {
+      if (h == 1) Mw[lane] = word;
+    }
+  };
+
+  fill_rows<kTile, kFwdThreads>(reinterpret_cast<float*>(sm + kFQOff),
+                                q + base + (size_t)m0 * kHD, L - m0, tid);
+  load_kv(0, 0);
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = kMode == kNoMask ? 0 : -1; t < ntiles; ++t) {
+    const int n0 = t * kTile, st = t & 1;
+    const bool next = t + 1 < ntiles;
+    if (t >= 0) {
+      cp_async_wait_all();
+      __syncthreads();   // tile t landed; every warp is done with tile t - 1
+      if (next) load_kv(n0 + kTile, st ^ 1);
+    }
+    if (!active) continue;
+    if (t >= 0) {
+      float s[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
+      rows_by_rows<2>(s, sm, kFQOff, kFKVOff + st * kFStage,
+                      16 * warp + 4 * g, (4 * warp + g) & 7, t8, 0);
+      const bool past = n0 + kTile > L;   // columns past L in the tile
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          if (past && n0 + 32 * (c / 4) + 4 * t8 + c % 4 >= L)
+            s[i][c] = -INFINITY;
+          mx = fmaxf(mx, s[i][c]);
+        }
+#pragma unroll
+        for (int x = 1; x < 8; x <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+        // finite: the tile has a column before L; scale_log2 > 0
+        const float mn = fmaxf(m[i], mx * scale_log2);
+        const float alpha = ex2(m[i] - mn);
+        m[i] = mn;
+        l[i] *= alpha;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
+        uint32_t keep = 0xFFu;   // bit c: column 32 (c / 4) + 4 t8 + c % 4
+        if constexpr (kMode != kNoMask) {
+          const uint2 wd =
+              *reinterpret_cast<const uint2*>(Mw + 2 * (4 * g + i));
+          keep = ((wd.x >> (4 * t8)) & 0xFu) | (((wd.y >> (4 * t8)) & 0xFu) << 4);
+        }
+        float p[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float e = ex2(fmaf(s[i][c], scale_log2, -mn));
+          l[i] += e;
+          p[c] = (keep >> c) & 1u ? e : 0.f;
+        }
+#pragma unroll
+        for (int G = 0; G < 2; ++G)
+          *reinterpret_cast<float4*>(
+              P + at64(16 * warp + 4 * g + i, 8 * G + t8, g)) =
+              make_float4(p[4 * G], p[4 * G + 1], p[4 * G + 2], p[4 * G + 3]);
+      }
+      __syncwarp();   // the warp's probabilities and mask words are read
+    }
+    const int nk = min(kTile, (L - n0 + 15) & ~15);
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      if (kMode != kNoMask && next) fetch_mask(n0 + kTile, h);
+      if (t >= 0)
+        probs_by_rows4(acc, sm, kFPOff,
+                       kFKVOff + st * kFStage + 4 * kTile * kHD,
+                       16 * warp + 4 * g, g, t8, 32 * h, min(32 * h + 32, nk));
+      if (kMode != kNoMask && next) put_mask(n0 + kTile, h);
+    }
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float lt = l[i];
+#pragma unroll
+    for (int x = 1; x < 8; x <<= 1) lt += __shfl_xor_sync(0xffffffffu, lt, x);
+    const int row = r0 + 4 * g + i;
+    if (row >= L) continue;
+    const float inv = inv_keep / lt;
+    *reinterpret_cast<float4*>(o + base + (size_t)row * kHD + 4 * t8) =
+        make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
+                    acc[i][3] * inv);
+    if (lse != nullptr && t8 == 0) lse[(size_t)bh * L + row] = m[i] + log2f(lt);
+  }
+}
+
+// dsum[r] = sum_c do[r][c] o[r][c], a thread a row.
+__global__ void attn_f32_dsum_kernel(const float* __restrict__ o,
+                                     const float* __restrict__ dout,
+                                     float* __restrict__ dsum, long long rows) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float4* a = reinterpret_cast<const float4*>(o + r * kHD);
+  const float4* b = reinterpret_cast<const float4*>(dout + r * kHD);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < kHD / 4; ++c) {
+    const float4 x = a[c], y = b[c];
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s);
+    s = fmaf(x.w, y.w, s);
+  }
+  dsum[r] = s;
+}
+
+// ---- the backward's key-block pass ----
+//
+// A block of 256 threads takes 128 key rows; warp w owns rows 16 w .. 16 w
+// + 15 of the scores' and their gradients' tiles, lane (g, t8) = (lane / 8,
+// lane % 8) rows 16 w + 4 g + i (i < 4).  k, v, q and do are swizzled
+// [rows][kHD] tiles, p^T and then ds^T one [128][64] score tile.
+constexpr int kKeys = 2 * kTile;       // key rows a block
+constexpr int kBwdThreads = 256;       // 8 warps of 16 key rows
+constexpr int kHalf = kBwdThreads / 2; // the threads of a 64-key half (dq)
+constexpr int kMS = 5;   // a tile row's 4 mask words: stride 5, so the 8
+                         // rows 4 t8 + j a warp reads fall in 8 banks
+
+// the byte offsets of the dk/dv pass's shared tiles (dk's sums first)
+constexpr uint32_t kKsOff = 16 * 4 * kBwdThreads;
+constexpr uint32_t kVsOff = kKsOff + 4 * kKeys * kHD;
+constexpr uint32_t kQsOff = kVsOff + 4 * kKeys * kHD;
+constexpr uint32_t kOsOff = kQsOff + 4 * kTile * kHD;
+constexpr uint32_t kPsOff = kOsOff + 4 * kTile * kHD;
+constexpr uint32_t kXsOff = kPsOff + 4 * kKeys * kTile;
+constexpr uint32_t kLsOff = kXsOff + 4 * kTile * kHD;
+constexpr int kDkvSmemBytes = kLsOff + 4 * (2 * kTile + kTile * kMS);
+static_assert(4096 + 4 * (4 * kTile * kHD * 2 + 4 * 16 * kTile + 16 * 4 * 32 +
+                          3 * 4 * kTile) <= kDkvSmemBytes,
+              "the tail's four warp regions fit");
 
 // The thread's and block's indices read again: the offsets of the loads,
 // of the dq part and of the stores are recomputed from them where they are
@@ -582,8 +571,8 @@ __device__ __forceinline__ void warp_tile(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) dp[i][j] = s[i][j] = 0.f;
-    rows_by_rows(dp, sm, v_off, o_off, rki, sa, t8, G);
-    rows_by_rows(s, sm, k_off, q_off, rki, sa, t8, G);
+    rows_by_rows<1>(dp, sm, v_off, o_off, rki, sa, t8, G);
+    rows_by_rows<1>(s, sm, k_off, q_off, rki, sa, t8, G);
     const float4 l4 = ld4(Lt + 32 * G + 4 * t8);
     const float4 d4 = ld4(Dt + 32 * G + 4 * t8);
 #pragma unroll
@@ -833,8 +822,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2) attn_f32_bwd_dkv_kernel(
     const KeyBlock kbh = key_block(fresh_ctaid_x(), L);
     const int n0 = kKeys * kbh.kb;
     const size_t rbase = (size_t)kbh.bh * L;
-    fill_rows<kTile>(Qs, q + (rbase + m0) * kHD, L - m0, tid);
-    fill_rows<kTile>(Os, dout + (rbase + m0) * kHD, L - m0, tid);
+    fill_rows<kTile, kBwdThreads>(Qs, q + (rbase + m0) * kHD, L - m0, tid);
+    fill_rows<kTile, kBwdThreads>(Os, dout + (rbase + m0) * kHD, L - m0, tid);
     if (tid < kTile) {
       if (m0 + tid < L)
         cp_async<4>(Ls + tid, lse + rbase + m0 + tid, true);
@@ -856,8 +845,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2) attn_f32_bwd_dkv_kernel(
     const int tid = threadIdx.x;
     const KeyBlock kbh = key_block(blockIdx.x, L);
     const size_t base = ((size_t)kbh.bh * L + kKeys * kbh.kb) * kHD;
-    fill_rows<kKeys>(Ks, k + base, nk, tid);
-    fill_rows<kKeys>(Vs, v + base, nk, tid);
+    fill_rows<kKeys, kBwdThreads>(Ks, k + base, nk, tid);
+    fill_rows<kKeys, kBwdThreads>(Vs, v + base, nk, tid);
     load_tile(0);
     cp_async_commit();
 #pragma unroll
@@ -1029,16 +1018,16 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
-template <bool kDrop>
+template <int kMode>
 int launch_fwd(const float* q, const float* k, const float* v,
-               const uint32_t* bits, float* o, float* lse, int bh, int L,
+               const FwdMaskArgs& mask, float* o, float* lse, int bh, int L,
                int W, float scale, float inv_keep, cudaStream_t s) {
   constexpr int smem = kFwdSmemBytes;
-  cudaError_t err = set_smem(attn_f32_fwd_kernel<kDrop>, smem);
+  cudaError_t err = set_smem(attn_f32_fwd_kernel<kMode>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + kTile - 1) / kTile, bh);
-  attn_f32_fwd_kernel<kDrop><<<grid, kThreads, smem, s>>>(
-      q, k, v, bits, o, lse, L, W, scale * 1.4426950408889634f, inv_keep);
+  attn_f32_fwd_kernel<kMode><<<grid, kFwdThreads, smem, s>>>(
+      q, k, v, mask, o, lse, L, W, scale * 1.4426950408889634f, inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -1083,26 +1072,40 @@ extern "C" int attention_f32_pack(const void* keep, void* bits,
   return (int)cudaGetLastError();
 }
 
-// q, k, v, o: float32 [bh, L, 32] contiguous, 16-byte aligned; bits: the
-// packed keep mask [bh, L, W] or null (no dropout; inv_keep 1); lse: float32
-// [bh, L] (base 2) or null.  inv_keep = 1 / (1 - rate).
+// q, k, v, o: float32 [bh, L, 32] contiguous, 16-byte aligned; lse: float32
+// [bh, L] (base 2) or null; scale > 0.  The dropout mask, inv_keep = 1 / (1
+// - rate):
+//   draws non-null: float32 uniform draws of [bh / heads, heads, L, L] with
+//     rows of stride L, those of (b, h) at draws + b * draw_sb + h * draw_sh;
+//     a score is kept where its draw >= rate; the bits [bh, L, W] (W = 2
+//     ceil(L / 64)) of the mask are written to `bits`;
+//   draws null, bits non-null: the mask's bits [bh, L, W], read;
+//   both null: no dropout (inv_keep 1).
 extern "C" int attention_f32_fwd(const void* q, const void* k, const void* v,
-                                 const void* bits, void* o, void* lse, int bh,
-                                 int L, float scale, float inv_keep,
+                                 const void* draws, void* bits, void* o,
+                                 void* lse, int bh, int heads, int L,
+                                 long long draw_sb, long long draw_sh,
+                                 float scale, float inv_keep, float rate,
                                  void* stream) {
-  if (bh < 1 || bh > 65535 || L < 1) return (int)cudaErrorInvalidValue;
+  if (bh < 1 || bh > 65535 || L < 1 || !(scale > 0.f) ||
+      (draws != nullptr && (bits == nullptr || heads < 1 || bh % heads)))
+    return (int)cudaErrorInvalidValue;
   const int W = 2 * ((L + 63) / 64);
   const float *fq = static_cast<const float*>(q),
               *fk = static_cast<const float*>(k),
               *fv = static_cast<const float*>(v);
-  const uint32_t* b = static_cast<const uint32_t*>(bits);
+  const FwdMaskArgs mask{static_cast<const float*>(draws), draw_sb, draw_sh,
+                         heads, rate, static_cast<uint32_t*>(bits)};
   float *fo = static_cast<float*>(o), *fl = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return b != nullptr
-             ? launch_fwd<true>(fq, fk, fv, b, fo, fl, bh, L, W, scale,
-                                inv_keep, s)
-             : launch_fwd<false>(fq, fk, fv, b, fo, fl, bh, L, W, scale,
+  if (draws != nullptr)
+    return launch_fwd<kMaskDraws>(fq, fk, fv, mask, fo, fl, bh, L, W, scale,
+                                  inv_keep, s);
+  if (bits != nullptr)
+    return launch_fwd<kMaskBits>(fq, fk, fv, mask, fo, fl, bh, L, W, scale,
                                  inv_keep, s);
+  return launch_fwd<kNoMask>(fq, fk, fv, mask, fo, fl, bh, L, W, scale,
+                             inv_keep, s);
 }
 
 // dq, dk, dv [bh, L, 32] from q, k, v, the forward's o and lse, the output

@@ -198,19 +198,33 @@ class BatchRows:
         return g_off, torch.cat(parts)
 
 
+def keep_draws(shape, gen: torch.Generator | None, device,
+               broadcast: bool = False, rows: BatchRows | None = None,
+               heads: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """The uniform draws from which ``keep_mask`` makes the keep mask of a
+    tensor of ``shape`` on ``device``: one ``torch.rand(...)`` from ``gen``
+    (never torch's global RNG), float32 in [0, 1).  ``broadcast`` draws one
+    mask along the sequence axis of ``[B, L, D]`` (the JAX package's
+    ``dropout_broadcast``; the draws are ``[B, 1, D]``).  ``rows`` (data
+    parallelism) draws at the global batch's leading size and keeps this
+    rank's rows; ``heads`` ``(lo, hi, total)`` (tensor parallelism of
+    attention probabilities ``[B, H, L, L]``) draws every head and keeps
+    ``lo:hi`` (a view).  Raises without a generator.  The fused float32
+    attention (``ops/attention_f32.py``) takes these draws and compares
+    them itself, so both paths drop the same scores."""
+    return _drawn(shape, None, gen, device, broadcast, rows, heads)
+
+
 def keep_mask(shape, rate: float, gen: torch.Generator | None, device,
               broadcast: bool = False, rows: BatchRows | None = None,
               heads: tuple[int, int, int] | None = None) -> torch.Tensor:
     """The bool keep mask that ``dropout`` draws for a tensor of ``shape``
-    on ``device``: ``torch.rand(...) >= rate`` from ``gen`` (never torch's
-    global RNG).  ``broadcast`` draws one mask along the sequence axis of
-    ``[B, L, D]`` (the JAX package's ``dropout_broadcast``; the mask is
-    ``[B, 1, D]``).  ``rows`` (data parallelism) draws at the global
-    batch's leading size and keeps this rank's rows; ``heads`` ``(lo, hi,
-    total)`` (tensor parallelism of attention probabilities ``[B, H, L,
-    L]``) draws every head and keeps ``lo:hi``.  Raises without a
-    generator.  The fused float32 attention (``ops/attention_f32.py``)
-    takes its mask from here too, so both paths drop the same scores."""
+    on ``device``: ``keep_draws(...) >= rate``, its arguments as there
+    (compared before the rows and heads are kept)."""
+    return _drawn(shape, rate, gen, device, broadcast, rows, heads)
+
+
+def _drawn(shape, rate, gen, device, broadcast, rows, heads) -> torch.Tensor:
     if gen is None:
         raise RuntimeError("dropout in train mode needs a generator: call "
                            "set_dropout_generator(model, generator) first")
@@ -220,12 +234,14 @@ def keep_mask(shape, rate: float, gen: torch.Generator | None, device,
         draw[0], idx = rows.select(shape[0], device)
     if heads is not None:
         draw[1] = heads[2]
-    keep = torch.rand(draw, generator=gen, device=device) >= rate
+    out = torch.rand(draw, generator=gen, device=device)
+    if rate is not None:
+        out = out >= rate
     if idx is not None:
-        keep = keep[idx]
+        out = out[idx]
     if heads is not None:
-        keep = keep[:, heads[0]: heads[1]]
-    return keep
+        out = out[:, heads[0]: heads[1]]
+    return out
 
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
@@ -261,13 +277,19 @@ class Dropout(nn.Module):
                        self.rows, self.heads)
 
     def keep(self, shape, device) -> torch.Tensor | None:
-        """The keep mask ``forward`` would draw for an input of ``shape``,
-        for a kernel that drops inside (``ops/attention_f32.py``); None in
-        eval mode or at rate 0, where ``forward`` draws nothing."""
+        """The keep mask ``forward`` would draw for an input of ``shape``;
+        None in eval mode or at rate 0, where ``forward`` draws nothing."""
+        d = self.draws(shape, device)
+        return None if d is None else d >= self.rate
+
+    def draws(self, shape, device) -> torch.Tensor | None:
+        """The uniform draws ``forward`` would make its mask from for an
+        input of ``shape`` (``keep_draws``), for a kernel that compares and
+        drops inside (``ops/attention_f32.py``); None where ``keep`` is."""
         if not self.training or self.rate == 0.0:
             return None
-        return keep_mask(shape, self.rate, self.generator, device,
-                         self.broadcast, self.rows, self.heads)
+        return keep_draws(shape, self.generator, device, self.broadcast,
+                          self.rows, self.heads)
 
 
 class RecomputeDraws:

@@ -6,10 +6,10 @@ it sees, with no flag:
 
   - float32 CUDA q, k and v of head dim 32 (the kernels' instance),
     float32 scores and no mask: the fused float32 kernels
-    (``ops/attention_f32.py``), with the attention dropout's mask drawn by
-    ``attn_drop.keep`` (the draws the einsum path's dropout makes) and
-    applied inside, whatever ``flash_attention`` says (upstream V18 and
-    V17 take this path);
+    (``ops/attention_f32.py``), handed the attention dropout's draws by
+    ``attn_drop.draws`` (those the einsum path's dropout makes its mask
+    from), which the kernel compares and applies inside, whatever
+    ``flash_attention`` says (upstream V18 and V17 take this path);
   - else ``flash_attention`` set, attention dropout 0 and no mask: the
     fused bf16 kernels (``ops/attention.py``), where the JAX package takes
     its Pallas kernel (transformer.py:207-208);
@@ -143,11 +143,10 @@ class MultiHeadAttention(nn.Module):
 
         if (q.is_cuda and q.dtype == torch.float32 and hd == F32_HEAD_DIM
                 and self.score_dtype == torch.float32 and mask is None):
-            shape = (b, heads, l, l)
-            keep = self.attn_drop.keep(shape, q.device)
+            draws = self.attn_drop.draws((b, heads, l, l), q.device)
             out = attention_f32(q.contiguous(), k.contiguous(),
-                                v.contiguous(), 1.0 / float(hd) ** 0.5, keep,
-                                self.attn_rate if keep is not None else 0.0)
+                                v.contiguous(), 1.0 / float(hd) ** 0.5, draws,
+                                self.attn_rate if draws is not None else 0.0)
         elif self.flash and mask is None and self.attn_rate == 0.0:
             out = attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             1.0 / float(hd) ** 0.5)

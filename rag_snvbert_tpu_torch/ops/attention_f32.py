@@ -8,7 +8,7 @@ attention (upstream V18 and V17: 12 or 6 heads of 32, attention dropout
 0.1), whose backward keeps the float32 probabilities, the keep mask and
 the dropped probabilities ``[B, H, L, L]``.  Here the backward keeps the
 row LSE and the mask at one bit a score.  The mask is the one the caller
-drew (``models/layers.py::keep_mask``, the draws of ``layers.dropout``),
+drew (``models/layers.py::keep_draws``, the draws of ``layers.dropout``),
 so the kernels drop exactly the scores the einsum path drops.
 ``attention_f32`` is differentiable on both devices through
 ``AttentionF32Fn``: each half takes its plain version for CPU tensors
@@ -16,10 +16,16 @@ only; a CUDA tensor goes to the kernels, or the wrapper raises on what
 they do not take.  Layout ``[B, H, L, hd]``; the LSE is in base 2, as in
 ``ops/attention.py``.
 
-The mask travels as bits: ``[B, H, L, W]`` int32, ``W = mask_words(L)``,
-bit ``c % 32`` of word ``c // 32`` of a row is column ``c`` (1: kept),
-bits past ``L`` are 0.  ``pack_keep`` makes them from the bool mask (a
-kernel on the card, ``pack_keep_plain`` on the CPU).
+How the mask travels.  The model hands the forward its uniform draws, the
+float32 ``[B, H, L, L]`` that ``torch.rand`` made (a score is kept where
+its draw is at least the rate): the forward kernel compares them as it
+walks the keys and writes the mask's bits for the backward, so no bool
+mask ``[B, H, L, L]`` is made on the card.  A caller may hand a bool mask
+instead (``keep``'s other type): ``pack_keep`` turns it into the bits, and
+the forward reads them.  The bits are ``[B, H, L, W]`` int32, ``W =
+mask_words(L)``, bit ``c % 32`` of word ``c // 32`` of a row is column
+``c`` (1: kept), bits past ``L`` are 0; on the CPU ``pack_keep_plain``
+makes them.
 """
 
 from __future__ import annotations
@@ -37,9 +43,9 @@ _SIGNATURES = {
     "attention_f32_pack": [ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p],
-    "attention_f32_fwd": [ctypes.c_void_p] * 6
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-       ctypes.c_void_p],
+    "attention_f32_fwd": [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 3
+    + [ctypes.c_void_p],
     "attention_f32_bwd": [ctypes.c_void_p] * 12
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
        ctypes.c_void_p],
@@ -178,21 +184,41 @@ def attention_f32_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       rate: float = 0.0, with_lse: bool = True
                       ) -> tuple[torch.Tensor, torch.Tensor | None,
                                  torch.Tensor | None]:
-    """The forward: ``(out, lse, bits)``.  ``keep`` is the bool mask
-    ``[B, H, L, L]`` of dropout at ``rate`` (None: no dropout); ``bits``
-    its packed form for the backward (None without a mask), ``lse`` None
-    (and written by no one) unless ``with_lse``."""
+    """The forward: ``(out, lse, bits)``.  ``keep`` is dropout at ``rate``
+    over ``[B, H, L, L]``: its bool mask, or the float32 uniform draws it
+    is made from (kept where the draw ``>= rate``; on the card any strides
+    whose last two dims are contiguous), or None (no dropout).  ``bits``
+    the mask's packed form for the backward (None without a mask), ``lse``
+    None (and written by no one) unless ``with_lse``.  The kernel takes a
+    positive ``scale``."""
     inv_keep = _inv_keep(rate)
     if q.device.type == "cpu":
+        if keep is not None and keep.dtype != torch.bool:
+            keep = keep >= rate
         out, lse = attention_f32_fwd_plain(q, k, v, scale, keep, rate)
         bits = pack_keep_plain(keep) if keep is not None else None
         return out, lse if with_lse else None, bits
     b, h, l, hd = _check("attention_f32", {"q": q, "k": k, "v": v})
-    bits = None
-    if keep is not None:
+    if not scale > 0:
+        raise ValueError(f"attention_f32: scale {scale}, the kernel takes a "
+                         "positive one")
+    draws = bits = None
+    if keep is not None and keep.dtype == torch.bool:
         _check_aux("attention_f32", "keep", keep, torch.bool, (b, h, l, l),
                    q.device)
         bits = pack_keep(keep)
+    elif keep is not None:
+        if keep.dtype != torch.float32 or keep.shape != (b, h, l, l) or \
+                keep.device != q.device or keep.stride(3) != 1 or \
+                (l > 1 and keep.stride(2) != l):
+            raise ValueError(f"attention_f32: keep must be bool, or float32 "
+                             f"draws [{b}, {h}, {l}, {l}] on {q.device} with "
+                             f"rows of stride {l}, got {keep.dtype} "
+                             f"{tuple(keep.shape)} strides {keep.stride()} "
+                             f"on {keep.device}")
+        draws = keep
+        bits = torch.empty(b, h, l, mask_words(l), dtype=torch.int32,
+                           device=q.device)
     lib = _build.load("attention_f32", _SIGNATURES)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device) \
@@ -200,9 +226,12 @@ def attention_f32_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = lib.attention_f32_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            draws.data_ptr() if draws is not None else None,
             bits.data_ptr() if bits is not None else None, out.data_ptr(),
-            lse.data_ptr() if with_lse else None, b * h, l, float(scale),
-            inv_keep if bits is not None else 1.0,
+            lse.data_ptr() if with_lse else None, b * h, h, l,
+            draws.stride(0) if draws is not None else 0,
+            draws.stride(1) if draws is not None else 0, float(scale),
+            inv_keep if bits is not None else 1.0, float(rate),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "attention_f32")
     attention_f32.launches += 1
@@ -277,8 +306,9 @@ def attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, keep: torch.Tensor | None = None,
                   rate: float = 0.0) -> torch.Tensor:
     """Fused float32 ``dropout(softmax(q k^T * scale)) v`` over
-    ``[B, H, L, hd]``, the dropout the bool mask ``keep`` at ``rate``
-    (None: none), differentiable in q, k and v.
+    ``[B, H, L, hd]``, the dropout at ``rate`` given by ``keep``: its bool
+    mask or its float32 draws (``attention_f32_fwd``; None: none),
+    differentiable in q, k and v.
 
     The keys go in less their mean over the sequence.  Shifting every key
     of a head by one vector adds a constant to each row of scores, which

@@ -1,11 +1,12 @@
 """The float32 attention kernels' CPU side (``ops/attention_f32.py``): the
 plain forward and backward against autograd of the einsum path
-(``MultiHeadAttention._core``) with the same keep mask; the mask's bits;
-``models.layers.keep_mask`` giving ``dropout``'s draws; the routing of
+(``MultiHeadAttention._core``) with the same keep mask; the mask's bits,
+from the bool mask or from its draws; ``models.layers.keep_mask`` and
+``keep_draws`` giving ``dropout``'s draws; the routing of
 ``MultiHeadAttention`` (float32 CUDA q, k, v of head dim 32, float32
-scores and no mask take the op; nothing else does); the wrapper's checks
-and ``AttentionF32Fn``'s plumbing.  The kernels themselves run in
-``tests/test_torch_cuda.py`` on the card.
+scores and no mask take the op, handed the draws; nothing else does); the
+wrapper's checks and ``AttentionF32Fn``'s plumbing.  The kernels
+themselves run in ``tests/test_torch_cuda.py`` on the card.
 """
 
 import importlib
@@ -151,6 +152,70 @@ def test_keep_mask_rows_and_heads_are_the_whole_draws_slices():
                                       heads=(2, 4, 4)) != 0, heads)
 
 
+@pytest.mark.parametrize("shape,rows,heads", [
+    ((2, 4, 33, 33), None, None),
+    ((2 * 3, 4, 33, 33), layers.BatchRows.stacked(3, 3, 6), None),
+    ((2, 2, 70, 70), None, (2, 4, 4))], ids=["plain", "rows", "heads"])
+def test_draws_give_the_bits_of_keep_mask(shape, rows, heads):
+    """The op's draws, turned into bits by its forward, are the bits of
+    the mask ``keep_mask`` draws with the same arguments (a data-parallel
+    rank's rows, a tensor-parallel rank's heads); ``keep_draws`` and
+    ``keep_mask`` leave the generator alike."""
+    g1, g2 = (torch.Generator().manual_seed(13) for _ in range(2))
+    draws = layers.keep_draws(shape, g1, "cpu", rows=rows, heads=heads)
+    keep = layers.keep_mask(shape, RATE, g2, "cpu", rows=rows, heads=heads)
+    assert draws.dtype == torch.float32 and draws.shape == keep.shape
+    assert torch.equal(g1.get_state(), g2.get_state())
+    assert torch.equal(draws >= RATE, keep)
+    q, k, v = _qkv(shape[:3] + (32,), seed=shape[2])
+    _, _, bits = af.attention_f32_fwd(q, k, v, 0.2, draws, RATE)
+    assert torch.equal(bits, af.pack_keep_plain(keep))
+    assert torch.equal(af.attention_f32_fwd(q, k, v, 0.2, keep, RATE)[2],
+                       bits)
+
+
+@pytest.mark.parametrize("heads", [12, 6])
+@pytest.mark.parametrize("rate", [0.0, RATE])
+def test_op_with_draws_is_the_op_with_their_mask(heads, rate):
+    """Forward, backward and gradients through ``attention_f32`` are the
+    same handed the draws or the bool mask they give."""
+    q, k, v = _qkv((2, heads, 37, 32), seed=heads, requires_grad=True)
+    draws = torch.rand(2, heads, 37, 37,
+                       generator=torch.Generator().manual_seed(heads))
+    do = _qkv((2, heads, 37, 32), seed=14)[0]
+    got, want = ([af.attention_f32(q, k, v, 32 ** -0.5, m, rate)]
+                 for m in (draws, draws >= rate))
+    for side in (got, want):
+        side.extend(torch.autograd.grad(side[0], (q, k, v), do))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    out, lse, bits = af.attention_f32_fwd(q.detach(), k.detach(),
+                                          v.detach(), 0.2, draws, rate)
+    halves = af.attention_f32_bwd(q.detach(), k.detach(), v.detach(), out,
+                                  lse, do, 0.2, bits, rate)
+    plain = af.attention_f32_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                       out, lse, do, 0.2, draws >= rate,
+                                       rate)
+    for a, b in zip(halves, plain):
+        assert torch.equal(a, b)
+
+
+def test_draws_the_card_does_not_take_raise(monkeypatch):
+    """On the card the draws must be float32 ``[B, H, L, L]`` with rows of
+    stride L: anything else raises before a launch."""
+    q, k, v = _qkv((1, 2, 8, 32), seed=15)
+    monkeypatch.setattr(af, "_check", lambda what, t: (1, 2, 8, 32))
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda t: torch.device("cuda")))
+    good = torch.rand(1, 2, 8, 8)
+    for bad in (good.double(), good[..., :7], good.transpose(2, 3),
+                torch.rand(1, 2, 8, 16)[..., ::2]):
+        with pytest.raises(ValueError, match="draws"):
+            af.attention_f32_fwd(q, k, v, 0.2, bad, RATE)
+    with pytest.raises(ValueError, match="scale"):
+        af.attention_f32_fwd(q, k, v, -0.2, good, RATE)
+
+
 def test_dropout_module_keep():
     drop = layers.Dropout(RATE)
     gen = torch.Generator().manual_seed(11)
@@ -161,10 +226,19 @@ def test_dropout_module_keep():
     drop.train()
     drop.rate = 0.0
     assert drop.keep((2, 3), "cpu") is None
+    assert drop.draws((2, 3), "cpu") is None
     drop.rate = RATE
+    g2 = torch.Generator().manual_seed(11)
+    drop.generator = g2
+    state = g2.get_state()
+    draws = drop.draws((2, 3), "cpu")
+    g2.set_state(state)
+    assert torch.equal(draws >= RATE, drop.keep((2, 3), "cpu"))
     drop.generator = None
     with pytest.raises(RuntimeError, match="generator"):
         drop.keep((2, 3), "cpu")
+    with pytest.raises(RuntimeError, match="generator"):
+        drop.draws((2, 3), "cpu")
 
 
 class _Spy:
@@ -205,9 +279,14 @@ def test_float32_on_the_card_takes_the_op(spies, as_cuda, heads, hd, remat):
     assert len(spies["f32"].calls) == 1 and not spies["bf16"].calls
     q, k, v, scale, keep, rate = spies["f32"].calls[0]
     assert q.is_contiguous() and scale == 1.0 / hd ** 0.5 and rate == RATE
-    # the mask is the one the einsum path's dropout draws
+    # the op is handed the draws, whose mask is the one the einsum path's
+    # dropout draws
+    assert keep.dtype == torch.float32
     gen.set_state(state)
-    assert torch.equal(keep, mod.attn_drop.keep((2, heads, 9, 9), "cpu"))
+    assert torch.equal(keep, mod.attn_drop.draws((2, heads, 9, 9), "cpu"))
+    gen.set_state(state)
+    assert torch.equal(keep >= RATE,
+                       mod.attn_drop.keep((2, heads, 9, 9), "cpu"))
     gen.set_state(state)
     with torch.no_grad():
         mod.remat = False
