@@ -211,6 +211,7 @@ REMAT_DIR = "runs/chip_smoke_remat"
 FUSION_TOL = 1e-4
 # The LayerNorm kernels (phase_layer_norm) at the training shape: 48
 # sequences of 1030 tokens, the blocks' width and the FFN's.
+RESIDUAL_SHAPES = ((48, 1030, 384), (64, 1030, 384))  # [2B, L, D]: 24, 32
 LN_ROWS = 48 * 1030
 LN_DIMS = (384, 1536)
 LN_EPS = 1e-6
@@ -244,18 +245,20 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-LN_KEYS = ("layer_norm", "layer_norm_bwd")
+BLOCK_KEYS = ("layer_norm", "layer_norm_bwd", "residual", "residual_bwd")
 
 
-def ln_want(counts: dict, forward: bool, backward: bool = False) -> dict:
-    """The LayerNorm kernels' entries of a path's expected launch counts:
-    some forward launches where the path runs a bf16 model, some backward
-    ones where it trains one, none otherwise.  A path's exact number (one
-    a bf16 LayerNorm call) is held by tests/test_torch_cuda.py for a
-    micro-step and by phase_layer_norm for a call."""
+def block_want(counts: dict, forward: bool, backward: bool = False) -> dict:
+    """The bf16 block kernels' entries (LayerNorm, the pre-LN residual
+    epilogue) of a path's expected launch counts: some forward launches
+    where the path runs a bf16 model, some backward ones where it trains
+    one, none otherwise.  A path's exact numbers (one a bf16 LayerNorm
+    call, two residual epilogues a pre-LN block) are held by
+    tests/test_torch_cuda.py for a micro-step, by phase_training for a
+    fit and by phase_layer_norm and phase_residual for a call."""
     return {key: counts[key] if (counts[key] > 0) == some
             else ("some" if some else 0)
-            for key, some in zip(LN_KEYS, (forward, backward))}
+            for key, some in zip(BLOCK_KEYS, (forward, backward) * 2)}
 
 
 def card_line() -> str:
@@ -306,6 +309,34 @@ def kernel_ms(fn, calls: int = 5) -> dict[str, float]:
             out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 \
                 / calls
     return out
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 3) -> float:
+    """Mean device ms of a call of ``fn``: ``calls`` calls captured in one
+    CUDA graph after a warm-up, its replays timed with CUDA events.  For
+    calls whose host time exceeds their device time, where events around
+    eager calls would time the host; the gaps between a graph's kernels
+    (about a microsecond each) are counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * calls)
+    del graph
+    return ms
 
 
 def bound(bytes_moved: float, ops: float,
@@ -571,6 +602,113 @@ def phase_layer_norm(gen) -> list[dict]:
             "bound_ms": main["bound_ms"], "bound_by": "bytes",
             "library_ms": main["library_ms"],
             "by_shape": [p[i] for p in per], "host_us": host})
+    return entries
+
+
+def _chain_bwd(g, f, masks, rates, leaky: bool) -> torch.Tensor:
+    """The ops autograd runs for the gradient of f through the residual
+    chain (``WhereBackward``, ``DivBackward``, ``LeakyReluBackward``), for
+    timing it in a CUDA graph, which autograd's engine cannot be captured
+    into here."""
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    for keep, rate in reversed(list(zip(masks, rates))):
+        g = torch.where(keep, g, zero) / (1.0 - rate)
+    if leaky:
+        g = torch.ops.aten.leaky_relu_backward(g, f, 0.1, False)
+    return g
+
+
+def _residual_at(shape, gen) -> list[dict]:
+    """The residual epilogue kernels at ``shape`` against PyTorch's chain
+    on the card, bit for bit, forward and backward (the kernels' forward
+    and ``ResidualFn``'s gradients of x and f against the chain's
+    autograd), for 0, 1 and 2 masks with and without LeakyReLU; and the
+    device ms of each kernel call and of the chain it replaces beside
+    the byte bound."""
+    from rag_snvbert_tpu_torch.ops.residual import (
+        residual, residual_bwd, residual_fwd, residual_plain)
+
+    b, _, d = shape
+    x, f, g = ((torch.randn(shape, generator=gen, device="cuda") * 2).to(
+        torch.bfloat16) for _ in range(3))
+    keeps = [torch.rand(b, 1, d, generator=gen, device="cuda") >= 0.1
+             for _ in range(2)]
+    act = x.numel() * 2                  # bytes of one bf16 activation
+    out = []
+    for n in (0, 1, 2):
+        for leaky in (False, True):
+            masks, rates = keeps[:n], [0.1] * n
+            chain = residual_plain(x, f, masks, rates, leaky)
+            same_fwd = torch.equal(residual_fwd(x, f, masks, rates,
+                                                    leaky), chain)
+            xg, fg, xc, fc = (t.detach().clone().requires_grad_()
+                              for t in (x, f, x, f))
+            got = torch.autograd.grad(residual(xg, fg, masks, rates, leaky),
+                                      (xg, fg), g)
+            y_chain = residual_plain(xc, fc, masks, rates, leaky)
+            want = torch.autograd.grad(y_chain, (xc, fc), g)
+            same_bwd = all(torch.equal(a, c) for a, c in zip(got, want))
+            check(torch.equal(_chain_bwd(g, f, masks, rates, leaky), want[1]),
+                  f"residual {list(shape)}: _chain_bwd is not the chain's "
+                  "autograd")
+            case = f"{list(shape)} {n} masks {'leaky' if leaky else 'id'}"
+            check(same_fwd and same_bwd, f"residual {case}: the kernels "
+                  f"differ from the chain (forward equal {same_fwd}, "
+                  f"backward equal {same_bwd})")
+            fwd = graph_ms(lambda: residual_fwd(x, f, masks, rates, leaky))
+            chain_fwd = graph_ms(lambda: residual_plain(x, f, masks, rates,
+                                                        leaky))
+            row = {"shape": list(shape), "masks": n, "leaky": leaky,
+                   "fwd_ms": fwd, "fwd_bound_ms": bound(3 * act + n * b * d,
+                                                        0)[0],
+                   "chain_fwd_ms": chain_fwd}
+            if n or leaky:
+                row["bwd_ms"] = graph_ms(lambda: residual_bwd(
+                    g, f, masks, rates, leaky))
+                row["bwd_bound_ms"] = bound((2 + leaky) * act + n * b * d,
+                                            0)[0]
+                row["chain_bwd_ms"] = graph_ms(lambda: _chain_bwd(
+                    g, f, masks, rates, leaky))
+            del y_chain, want, got
+            print(f"residual {case}: bit-equal to the chain; fwd "
+                  f"{row['fwd_ms']:.4f} ms ({row['fwd_bound_ms'] / row['fwd_ms']:.1%}"
+                  f" of the bound), chain {chain_fwd:.4f} ms"
+                  + (f"; bwd {row['bwd_ms']:.4f} ms "
+                     f"({row['bwd_bound_ms'] / row['bwd_ms']:.1%}), chain "
+                     f"{row['chain_bwd_ms']:.4f} ms" if "bwd_ms" in row
+                     else ""))
+            out.append(row)
+    return out
+
+
+def phase_residual(gen) -> list[dict]:
+    """The residual epilogue kernels at the training shapes of batch 24
+    and 32: the attention sublayer's call (one mask, no activation) and
+    the FFN's (two masks, LeakyReLU), bit for bit against the chain, with
+    their device times (row 11 of PERF.md's kernel table)."""
+    rows = [r for shape in RESIDUAL_SHAPES for r in _residual_at(shape, gen)]
+    main = [r for r in rows if r["shape"] == list(RESIDUAL_SHAPES[0])]
+    ffn = next(r for r in main if r["masks"] == 2 and r["leaky"])
+    attn = next(r for r in main if r["masks"] == 1 and not r["leaky"])
+    entries = []
+    for name, key in (("residual", "fwd"), ("residual_bwd", "bwd")):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "rag_snvbert_tpu_torch/csrc/residual.cu",
+            "replaces": "none (XLA fuses the epilogue on the TPU)",
+            "max_abs_err": 0.0, "ms": ffn[f"{key}_ms"],
+            "plain_ms": ffn[f"chain_{key}_ms"],
+            "bound_ms": ffn[f"{key}_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "by_shape": [{k: r[k] for k in r if k == "shape" or k == "masks"
+                          or k == "leaky" or k.startswith(key)
+                          or k.startswith(f"chain_{key}")}
+                         for r in rows if f"{key}_ms" in r]})
+    print(f"residual at {list(RESIDUAL_SHAPES[0])}: attention sublayer fwd "
+          f"{attn['fwd_ms']:.4f} / bwd {attn['bwd_ms']:.4f} ms (chain "
+          f"{attn['chain_fwd_ms']:.4f} / {attn['chain_bwd_ms']:.4f}), FFN "
+          f"fwd {ffn['fwd_ms']:.4f} / bwd {ffn['bwd_ms']:.4f} ms (chain "
+          f"{ffn['chain_fwd_ms']:.4f} / {ffn['chain_bwd_ms']:.4f})")
     return entries
 
 
@@ -1171,7 +1309,8 @@ def phase_index(gen) -> dict[str, int]:
     del bits
     want = {"attention": 0, "attention_bwd": 0, "attention_f32": 0,
             "attention_f32_bwd": 0, "layer_norm": 0,
-            "layer_norm_bwd": 0, "l2_topk": 0, "l2_topk_rf": 2 * 4,
+            "layer_norm_bwd": 0,
+            "residual": 0, "residual_bwd": 0, "l2_topk": 0, "l2_topk_rf": 2 * 4,
             "l2_topk_float": 2 * 4}
     print(f"index launches {counts} (expected {want}: search, masked "
           f"search and the round trip's two searches, two storages each)")
@@ -1401,7 +1540,7 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"attention": m.n_layers * batches * len(targets),
             "attention_bwd": 0, "attention_f32": 0, "attention_f32_bwd": 0,
-            **ln_want(counts, True),
+            **block_want(counts, True),
             "l2_topk": batches * len(targets), "l2_topk_rf": 0,
             "l2_topk_float": 0}
     print(f"launches {counts} (expected {want}: {n_win} windows x "
@@ -1441,7 +1580,7 @@ def phase_serving(profile: bool = False) -> dict[str, int]:
                     batch_size=32, use_kernel=False).impute(
         _drop(target, sites[keep]))
     after = ops.launch_counts()
-    check(all(after[k] == before[k] for k in after if k not in LN_KEYS)
+    check(all(after[k] == before[k] for k in after if k not in BLOCK_KEYS)
           and after["layer_norm"] > before["layer_norm"],
           f"the plain path launched an attention or search kernel, or no "
           f"LayerNorm kernel: {before} -> {after}")
@@ -1623,7 +1762,7 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     micro = n_win * -(-bundle.train.n_samples // 24)
     want = {"attention": m.n_layers * micro, "attention_bwd": m.n_layers
             * micro, "attention_f32": 0, "attention_f32_bwd": 0,
-            **ln_want(by_verb["train"], True, True),
+            **block_want(by_verb["train"], True, True),
             "l2_topk": micro, "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"train: {train_s:.2f} s for {micro} micro-steps and a "
           f"checkpoint; launches {by_verb['train']} (expected {want}); "
@@ -1641,7 +1780,7 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     by_verb["infer"] = ops.launch_counts()
     want = {"attention": m.n_layers * batches, "attention_bwd": 0,
             "attention_f32": 0, "attention_f32_bwd": 0,
-            **ln_want(by_verb["infer"], True), "l2_topk": batches,
+            **block_want(by_verb["infer"], True), "l2_topk": batches,
             "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"infer: {infer_s:.2f} s (model load, VCF parse, imputation and "
           f"VCF write); launches {by_verb['infer']} (expected {want}); "
@@ -1708,7 +1847,7 @@ def phase_cli(profile: bool = False) -> dict[str, int]:
     by_verb["serve"] = tail["launches"]
     want = {"attention": 2 * m.n_layers * batches, "attention_bwd": 0,
             "attention_f32": 0, "attention_f32_bwd": 0,
-            **ln_want(by_verb["serve"], True), "l2_topk": 2 * batches,
+            **block_want(by_verb["serve"], True), "l2_topk": 2 * batches,
             "l2_topk_rf": 0, "l2_topk_float": 0}
     print(f"serve (JSON lines, a subprocess): {serve_s:.2f} s in all; ready "
           f"line {lines[0]}; responses {lines[1:]}; {tail}; request "
@@ -1966,7 +2105,8 @@ def phase_interop(profile: bool = False) -> dict[str, int]:
     counts["infer"] = ops.launch_counts()
     want = {"attention": 0, "attention_bwd": 0,
             "attention_f32": m.n_layers * batches, "attention_f32_bwd": 0,
-            "layer_norm": 0, "layer_norm_bwd": 0, "l2_topk": batches,
+            "layer_norm": 0, "layer_norm_bwd": 0,
+            "residual": 0, "residual_bwd": 0, "l2_topk": batches,
             "l2_topk_rf": 0, "l2_topk_float": 0}
     st = {key: [s[key] for s in searches] for key in searches[0]}
     print(f"infer of the converted model: {infer_s:.2f} s in all (model "
@@ -2067,7 +2207,8 @@ def phase_interop(profile: bool = False) -> dict[str, int]:
     want = {"attention": 0, "attention_bwd": 0,
             "attention_f32": m.n_layers * 2,
             "attention_f32_bwd": m.n_layers * 2, "layer_norm": 0,
-            "layer_norm_bwd": 0, "l2_topk": 2, "l2_topk_rf": 0,
+            "layer_norm_bwd": 0,
+            "residual": 0, "residual_bwd": 0, "l2_topk": 2, "l2_topk_rf": 0,
             "l2_topk_float": 0}
     state = torch.load(at("finetune/ckpt_ep0/state.pt"), weights_only=True)
     moved = [float((state["params"][k].cpu() - a[k]).abs().max())
@@ -2118,7 +2259,7 @@ def phase_convergence(profile: bool = False) -> dict[str, int]:
     val = CONV_WINDOWS * -(-first["val_samples"] // 48)   # TrainerConfig's
     want = {"attention": 2 * m * (micro + val), "attention_bwd": 2 * m * micro,
             "attention_f32": 0, "attention_f32_bwd": 0,
-            **ln_want(counts, True, True), "l2_topk": 2 * (micro + val),
+            **block_want(counts, True, True), "l2_topk": 2 * (micro + val),
             "l2_topk_rf": 0, "l2_topk_float": 0}
     with open(os.path.join(CONV_DIR, "metrics.csv")) as f:
         rows = list(csv.DictReader(f))
@@ -2209,12 +2350,19 @@ def phase_ab_compat(profile: bool = False) -> dict[str, int]:
     want = {}
     for name in ("fixed", "perdim", "compat"):
         # one epoch: a forward a layer and a search a step (both
-        # haplotypes in one launch), a backward a layer a micro-step
+        # haplotypes in one launch), a backward a layer a micro-step; two
+        # residual epilogues a pre-LN block through the kernels, where
+        # the masks lie along the sequence (fixed) or there are none
+        # (validation; perdim's mask a position takes the chain in
+        # training); compat is post-LN
         kernels = name != "compat"
+        res_fwd = {"fixed": micro + val, "perdim": val, "compat": 0}[name]
         want[name] = {"attention": m * (micro + val) * kernels,
                       "attention_bwd": m * micro * kernels,
                       "attention_f32": 0, "attention_f32_bwd": 0,
-                      **ln_want(per[name], True, True),
+                      **block_want(per[name], True, True),
+                      "residual": 2 * m * res_fwd,
+                      "residual_bwd": 2 * m * micro * (name == "fixed"),
                       "l2_topk": micro + val, "l2_topk_rf": 0,
                       "l2_topk_float": 0}
         print(f"ab_compat {name}: {seconds[name]:.1f} s for one epoch "
@@ -2281,7 +2429,8 @@ def phase_sweep_topk(profile: bool = False) -> dict[str, int]:
     # then each plan one pass to check it and two timed passes
     want = {"attention": 0, "attention_bwd": 0, "attention_f32": 0,
             "attention_f32_bwd": 0, "layer_norm": 0,
-            "layer_norm_bwd": 0, "l2_topk": 0,
+            "layer_norm_bwd": 0,
+            "residual": 0, "residual_bwd": 0, "l2_topk": 0,
             "l2_topk_rf": SWEEP_CHUNKS * (2 + 3 * n_plans),
             "l2_topk_float": 0}
     print(f"sweep_topk launches {counts} (expected {want})")
@@ -2410,7 +2559,7 @@ def phase_int8(profile: bool = False) -> dict[str, int]:
             counts = ops.launch_counts()
             want = {**{k: 0 for k in counts},
                     "attention": m.n_layers * 2 * batches,
-                    **ln_want(counts, True), "l2_topk": 2 * batches}
+                    **block_want(counts, True), "l2_topk": 2 * batches}
             check(counts == want and Int8Dense.calls
                   == per_forward * 2 * batches,
                   f"int8 serving launches {counts} (expected {want}), "
@@ -2490,7 +2639,7 @@ def phase_int8(profile: bool = False) -> dict[str, int]:
             want = {**{k: 0 for k in train},
                     "attention": m.n_layers * (steps + 2),
                     "attention_bwd": m.n_layers * steps,
-                    **ln_want(train, True, True), "l2_topk": steps + 2}
+                    **block_want(train, True, True), "l2_topk": steps + 2}
             check(train == want and Int8Dense.calls
                   == per_forward * (steps + 2),
                   f"int8 training launches {train} (expected {want}), "
@@ -2659,8 +2808,12 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     want = {"attention": m.n_layers * (micro + val_steps),
             "attention_bwd": m.n_layers * micro, "attention_f32": 0,
             "attention_f32_bwd": 0,
-            **ln_want(counts, True, True), "l2_topk": micro + val_steps,
-            "l2_topk_rf": 0, "l2_topk_float": 0}
+            **block_want(counts, True, True), "l2_topk": micro + val_steps,
+            "l2_topk_rf": 0, "l2_topk_float": 0,
+            # two residual epilogues a pre-LN block, each with its masks
+            # in training (a backward launch each), none in validation
+            "residual": 2 * m.n_layers * (micro + val_steps),
+            "residual_bwd": 2 * m.n_layers * micro}
     print(f"fit: {fit_s:.2f} s for {micro} micro-steps ({opt.count} updates) "
           f"+ {val_steps} validation steps + a checkpoint; launches {counts} "
           f"(expected {want}); peak device memory {peak_fit:.2f} GB")
@@ -2775,7 +2928,7 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     one = ops.launch_counts()
     check(one == {"attention": m.n_layers, "attention_bwd": m.n_layers,
                   "attention_f32": 0, "attention_f32_bwd": 0,
-                  **ln_want(one, True, True), "l2_topk": 1, "l2_topk_rf": 0,
+                  **block_want(one, True, True), "l2_topk": 1, "l2_topk_rf": 0,
                   "l2_topk_float": 0},
           f"kernel path launches {one}")
     del model
@@ -2784,7 +2937,7 @@ def phase_training(profile: bool = False) -> dict[str, int]:
     ops.reset_launches()
     p_loss, p_grads = _grads_of_one_batch(model, batch, ctx_of, False)
     plain = ops.launch_counts()
-    check(not any(v for k, v in plain.items() if k not in LN_KEYS)
+    check(not any(v for k, v in plain.items() if k not in BLOCK_KEYS)
           and plain["layer_norm"] == one["layer_norm"]
           and plain["layer_norm_bwd"] == one["layer_norm_bwd"],
           f"the plain path launched an attention or search kernel: {plain}")
@@ -2888,7 +3041,8 @@ def phase_token_serving(profile: bool = False) -> dict[str, int]:
     want = {"attention": 0, "attention_bwd": 0,
             "attention_f32": m.n_layers * batches * len(targets),
             "attention_f32_bwd": 0, "layer_norm": 0,
-            "layer_norm_bwd": 0, "l2_topk": 0,
+            "layer_norm_bwd": 0,
+            "residual": 0, "residual_bwd": 0, "l2_topk": 0,
             "l2_topk_rf": batches * len(targets), "l2_topk_float": 0}
     print(f"token launches {counts} (expected {want}: {n_win} windows x "
           f"{batches // n_win} batches x {len(targets)} requests); peak "
@@ -3006,7 +3160,8 @@ def phase_token_training(profile: bool = False) -> dict[str, int]:
     want = {"attention": 0, "attention_bwd": 0,
             "attention_f32": m.n_layers * (micro + val_steps),
             "attention_f32_bwd": m.n_layers * micro, "layer_norm": 0,
-            "layer_norm_bwd": 0, "l2_topk": 0,
+            "layer_norm_bwd": 0,
+            "residual": 0, "residual_bwd": 0, "l2_topk": 0,
             "l2_topk_rf": micro + val_steps, "l2_topk_float": 0}
     print(f"token fit (v17_token_rag, batch {tcfg.batch_size}, accumulation "
           f"{tcfg.grad_accum_steps}): {fit_s:.2f} s for {micro} micro-steps "
@@ -3302,11 +3457,18 @@ def phase_remat(profile: bool = False) -> dict[str, int]:
         check(all(same.values()), f"remat={mode!r} changed the loss, a "
               "gradient, the generator or the update")
         # the deterministic step, the warm-up and the 5 timed ones
+        # the residual epilogues are recomputed where the whole block is
+        want_res = 2 * m.n_layers * (2 if mode in (True, "save_ffn") else 1)
         check(r["launches"]["attention"] == 7 * want_fwd
               and r["launches"]["attention_bwd"] == 7 * m.n_layers
-              and r["launches"]["l2_topk"] == 7,
+              and r["launches"]["l2_topk"] == 7
+              and r["launches"]["residual"] == 7 * want_res
+              and r["launches"]["residual_bwd"] == 7 * 2 * m.n_layers,
               f"remat={mode!r}: attention forward launches "
-              f"{r['launches']['attention']}, expected {7 * want_fwd}")
+              f"{r['launches']['attention']}, expected {7 * want_fwd}; "
+              f"residual {r['launches']['residual']} / "
+              f"{r['launches']['residual_bwd']}, expected {7 * want_res} / "
+              f"{7 * 2 * m.n_layers}")
     for mode in (True, "save_ffn", "attention"):
         check(runs[mode]["peak_gb"] < ref["peak_gb"],
               f"remat={mode!r} did not lower the peak")
@@ -3478,7 +3640,8 @@ def phase_remat(profile: bool = False) -> dict[str, int]:
 # distances, ties to the lower id on both sides).
 DISPATCH_DIR = "runs/chip_smoke_dispatch"
 DISPATCH_K = 4
-DISPATCH_KERNELS = {"tpu_default": ("attention", "attention_bwd", "l2_topk"),
+DISPATCH_KERNELS = {"tpu_default": ("attention", "attention_bwd", "l2_topk",
+                                    "residual", "residual_bwd"),
                     "v17_token_rag": ("attention_f32", "attention_f32_bwd",
                                       "l2_topk_rf")}
 
@@ -4029,7 +4192,7 @@ def _add_tp2(total: dict, target, ref, ref_sec: float, band) -> dict:
             part = r["serve", name]
             want = {"attention": serve_layers * batches, "attention_bwd": 0,
                     "attention_f32": 0, "attention_f32_bwd": 0,
-                    **ln_want(part["launches"], True), "l2_topk": batches,
+                    **block_want(part["launches"], True), "l2_topk": batches,
                     "l2_topk_rf": 0, "l2_topk_float": 0}
             check(part["heads"] == (2, want_split)
                   and part["launches"] == want,
@@ -4044,7 +4207,7 @@ def _add_tp2(total: dict, target, ref, ref_sec: float, band) -> dict:
             want = {"attention": TP2_TRAIN_LAYERS * micro,
                     "attention_bwd": TP2_TRAIN_LAYERS * micro,
                     "attention_f32": 0, "attention_f32_bwd": 0,
-                    **ln_want(part["launches"], True, True),
+                    **block_want(part["launches"], True, True),
                     "l2_topk": micro, "l2_topk_rf": 0, "l2_topk_float": 0}
             check(part["launches"] == want,
                   f"tp2 {label} fit rank {rank} launches "
@@ -4211,7 +4374,7 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
                 "l2_topk_rf": 0, "l2_topk_float": 0}
     for r in runs:
         _add(total, r["launches"])
-        per_rank.update(ln_want(r["launches"], True, True))
+        per_rank.update(block_want(r["launches"], True, True))
         check(r["shard_ctx"] and r["launches"] == per_rank,
               f"dp2 x idx2 rank launches {r['launches']}, want {per_rank}")
         check(not fit_failures(r["cmp"]),
@@ -4289,7 +4452,7 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
                 "l2_topk": batches * 2, "l2_topk_rf": 0, "l2_topk_float": 0}
     for r in runs:
         _add(total, r["launches"])
-        per_rank.update(ln_want(r["launches"], True))
+        per_rank.update(block_want(r["launches"], True))
         check(r["heads"] == 1 and r["launches"] == per_rank,
               f"tp3 rank: heads {r['heads']}, launches {r['launches']}")
     check(all(r.get("followed", 2) == 2 for r in runs),
@@ -4328,7 +4491,7 @@ def phase_distributed(profile: bool = False) -> dict[str, int]:
                 "l2_topk_float": 2 * 2 * 2}
     for r in runs:
         _add(total, r["launches"])
-        per_rank.update(ln_want(r["launches"], True))
+        per_rank.update(block_want(r["launches"], True))
         check(r["launches"] == per_rank,
               f"dp2/index rank launches {r['launches']}, want {per_rank}")
     mean_d, max_d = band(runs[0]["infer"], refs[0])
@@ -4431,7 +4594,8 @@ def phase_quality_ckpt(profile: bool = False) -> dict[str, int]:
     st = {key: [s[key] for s in searches] for key in searches[0]}
     want = {"attention": 0, "attention_bwd": 0, "attention_f32": 0,
             "attention_f32_bwd": 0, "layer_norm": 0,
-            "layer_norm_bwd": 0, "l2_topk": len(searches), "l2_topk_rf": 0,
+            "layer_norm_bwd": 0,
+            "residual": 0, "residual_bwd": 0, "l2_topk": len(searches), "l2_topk_rf": 0,
             "l2_topk_float": 0}
     print(f"stored trained checkpoint on the card: accuracy {acc:.4f} "
           f"(prior {prior_acc:.4f}), rare F1 {rare_f1:.4f}, common F1 "
@@ -4549,6 +4713,8 @@ def main() -> None:
     kernels.append(phase_attention_bwd(gen))
     torch.cuda.empty_cache()
     kernels.extend(phase_layer_norm(gen))
+    torch.cuda.empty_cache()
+    kernels.extend(phase_residual(gen))
     torch.cuda.empty_cache()
     kernels.extend(phase_attention_f32(gen))
     torch.cuda.empty_cache()

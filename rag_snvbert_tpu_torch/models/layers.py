@@ -18,6 +18,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.layer_norm import layer_norm, layer_norm_plain
+from ..ops.residual import keep_scaled
 
 
 def _out_dtype(x: torch.Tensor, param: torch.Tensor,
@@ -252,9 +253,8 @@ def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
     ``keep_mask`` draws for ``x`` with these arguments."""
     if rate == 0.0:
         return x
-    keep = keep_mask(x.shape, rate, gen, x.device, broadcast, rows, heads)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
-                                                           device=x.device))
+    return keep_scaled(x, keep_mask(x.shape, rate, gen, x.device, broadcast,
+                                    rows, heads), rate)
 
 
 class Dropout(nn.Module):

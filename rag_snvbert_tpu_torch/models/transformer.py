@@ -16,6 +16,11 @@ it sees, with no flag:
   - otherwise (the CPU, a mask, bf16 scores with dropout) the plain torch
     math below, the twin of the JAX einsum path (:220-233).
 
+A pre-LN block's residual epilogue after each sublayer (``x +
+drop(attention)``, ``x + drop(drop(leaky_relu(w_2)))``) routes the same
+way: bf16 CUDA activations to the residual kernels (``ops/residual.py``,
+``residual_epilogue``), everything else to PyTorch's chain.
+
 The layer stack is an unrolled loop: no scan and no pad-once residency
 (:379-399 pads to TPU block multiples; the CUDA kernels mask the ragged
 tail themselves).  ``quant`` (the model's ``int8_matmuls``) builds every
@@ -64,6 +69,7 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..ops.attention_f32 import HEAD_DIM as F32_HEAD_DIM, attention_f32
+from ..ops.residual import MAX_DIM as RESIDUAL_MAX_DIM, residual
 from .layers import (Dropout, LayerNorm, checkpoint, column_input,
                      row_parallel)
 
@@ -187,7 +193,8 @@ class MultiHeadAttention(nn.Module):
 class FeedForward(nn.Module):
     """Dense -> LeakyReLU(0.1) -> LayerNorm -> Dense -> LeakyReLU(0.1) ->
     dropout; ``hidden`` is the part up to JAX's ``ffn_hidden``, ``tail``
-    the rest."""
+    the rest, ``projected`` the rest up to ``w_2``'s output (a pre-LN
+    block applies the LeakyReLU and ``drop`` in its residual epilogue)."""
 
     def __init__(self, dims: int, hidden_dims: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32,
@@ -210,9 +217,35 @@ class FeedForward(nn.Module):
         return F.leaky_relu(self.w_1(x), 0.1)
 
     def tail(self, h: torch.Tensor) -> torch.Tensor:
-        h = F.leaky_relu(row_parallel(self.w_2, self.LayerNorm_0(h),
-                                      self.tp_group), 0.1)
-        return self.drop(h)
+        return self.drop(F.leaky_relu(self.projected(h), 0.1))
+
+    def projected(self, h: torch.Tensor) -> torch.Tensor:
+        return row_parallel(self.w_2, self.LayerNorm_0(h), self.tp_group)
+
+
+def residual_epilogue(x: torch.Tensor, f: torch.Tensor,
+                      drops: tuple[Dropout, ...],
+                      leaky: bool = False) -> torch.Tensor:
+    """``x + drops[-1](... drops[0](act(f)))``, ``act`` LeakyReLU(0.1)
+    where ``leaky``, else the identity: a pre-LN block's residual
+    epilogue.  Contiguous bf16 CUDA ``x`` and ``f`` of one shape ``[B, L,
+    D]``, D a multiple of 8 up to the kernels' limit, whose live dropouts
+    each draw one mask along the sequence, go to the residual kernels
+    (``ops/residual.py``) with the masks the dropouts draw, in order (the
+    chain's draws); everything else to the chain."""
+    live = [d for d in drops if d.training and d.rate != 0.0]
+    if (x.is_cuda and x.dtype == f.dtype == torch.bfloat16
+            and x.dim() == 3 and x.shape == f.shape
+            and x.shape[-1] % 8 == 0 and x.shape[-1] <= RESIDUAL_MAX_DIM
+            and x.is_contiguous() and f.is_contiguous()
+            and all(d.broadcast for d in live)):
+        masks = [d.keep(f.shape, f.device) for d in live]
+        return residual(x, f, masks, [d.rate for d in live], leaky)
+    if leaky:
+        f = F.leaky_relu(f, 0.1)
+    for d in drops:
+        f = d(f)
+    return x + f
 
 
 class TransformerBlock(nn.Module):
@@ -264,7 +297,8 @@ class TransformerBlock(nn.Module):
         ``(residual stream, ffn_hidden)``."""
         x = x.to(self.dtype)
         if self.pre_ln:
-            x = x + self.drop(self.attention(self.LayerNorm_0(x), mask))
+            x = residual_epilogue(
+                x, self.attention(self.LayerNorm_0(x), mask), (self.drop,))
             return x, self.feed_forward.hidden(self.LayerNorm_1(x))
         x = self.drop(self.LayerNorm_0(x + self.attention(x, mask)))
         return x, self.feed_forward.hidden(x)
@@ -272,7 +306,9 @@ class TransformerBlock(nn.Module):
     def _from_ffn_hidden(self, x: torch.Tensor,
                          h: torch.Tensor) -> torch.Tensor:
         if self.pre_ln:
-            return x + self.drop(self.feed_forward.tail(h))
+            ff = self.feed_forward
+            return residual_epilogue(x, ff.projected(h), (ff.drop, self.drop),
+                                     leaky=True)
         x = self.drop(self.LayerNorm_1(x + self.feed_forward.tail(h)))
         return self.drop(x)
 

@@ -11,7 +11,8 @@ with attention dropout 0 and no mask takes the bf16 kernels
 Each wrapper counts its kernel launches in a plain integer attribute
 (``attention.launches``, ``attention_bwd.launches``,
 ``attention_f32.launches``, ``attention_f32_bwd.launches``,
-``layer_norm.launches``, ``layer_norm_bwd.launches``, ``l2_topk.launches``,
+``layer_norm.launches``, ``layer_norm_bwd.launches``,
+``residual.launches``, ``residual_bwd.launches``, ``l2_topk.launches``,
 ``l2_topk_rf.launches``, ``l2_topk_float.launches``,
 ``int8_probe.launches``, ``int8_probe.pack_int4.launches``), so a run
 can show that the main path went through the kernels.  ``launch_counts()``
@@ -23,6 +24,7 @@ adds the int8 probe and its int4 pack, which only the probe tools
 from .attention import attention, attention_bwd
 from .attention_f32 import attention_f32, attention_f32_bwd
 from .layer_norm import layer_norm, layer_norm_bwd
+from .residual import residual, residual_bwd
 from .l2_topk import l2_topk
 from .l2_topk_float import l2_topk_float
 from . import int8_probe as _int8_probe   # ops.int8_probe: the module
@@ -32,6 +34,7 @@ WRAPPERS = {"attention": attention, "attention_bwd": attention_bwd,
             "attention_f32": attention_f32,
             "attention_f32_bwd": attention_f32_bwd,
             "layer_norm": layer_norm, "layer_norm_bwd": layer_norm_bwd,
+            "residual": residual, "residual_bwd": residual_bwd,
             "l2_topk": l2_topk, "l2_topk_rf": l2_topk_rf,
             "l2_topk_float": l2_topk_float}
 TOOL_WRAPPERS = {"int8_probe": _int8_probe.int8_probe,

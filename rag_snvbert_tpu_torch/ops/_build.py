@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("attention", "attention_bwd", "attention_f32", "layer_norm",
-           "l2_topk", "l2_topk_rf", "l2_topk_float", "int8_probe")
+           "residual", "l2_topk", "l2_topk_rf", "l2_topk_float",
+           "int8_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

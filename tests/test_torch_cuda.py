@@ -164,6 +164,7 @@ def test_attention_is_differentiable_through_the_kernels(cuda):
                                    "attention_f32": 0,
                                    "attention_f32_bwd": 0,
                                    "layer_norm": 0, "layer_norm_bwd": 0,
+                                   "residual": 0, "residual_bwd": 0,
                                    "l2_topk": 0, "l2_topk_rf": 0,
                                    "l2_topk_float": 0}
     qp, kp, vp = (x.detach().float().requires_grad_() for x in (q, k, v))
@@ -301,12 +302,14 @@ def test_small_model_serves_on_the_card_like_on_the_cpu(cuda):
                       **kw).impute(target)
     # bf16 LayerNorms a window: the context's AF embedding, then the
     # forward's 3 a block, the AF embedding twice (target and reference
-    # streams), the embedding fusion, the RAG fusion and its AF interaction
+    # streams), the embedding fusion, the RAG fusion and its AF interaction;
+    # two residual epilogues a block
     assert ops.launch_counts() == {"attention": 2 * 2, "attention_bwd": 0,
                                    "attention_f32": 0,
                                    "attention_f32_bwd": 0,
                                    "layer_norm": 2 * (1 + 3 * 2 + 5),
                                    "layer_norm_bwd": 0,
+                                   "residual": 2 * 2 * 2, "residual_bwd": 0,
                                    "l2_topk": 2, "l2_topk_rf": 0,
                                    "l2_topk_float": 0}
     on_cpu = Imputer(build_model(cfg, b.vocab.size, device="cpu", seed=1),
@@ -475,13 +478,17 @@ def test_small_model_trains_on_the_card_like_on_the_cpu(cuda):
         stats = step.train_step(model, opt, batch, ctx, step.StepConfig())
         if dev == "cuda":
             torch.cuda.synchronize()
-            # every bf16 LayerNorm of the micro-step forward and back
+            # every bf16 LayerNorm of the micro-step forward and back;
+            # two residual epilogues a block, of which dropout 0 leaves
+            # only the FFN's LeakyReLU a backward kernel
             assert ops.launch_counts() == {"attention": 2,
                                            "attention_bwd": 2,
                                            "attention_f32": 0,
                                            "attention_f32_bwd": 0,
                                            "layer_norm": 3 * 2 + 5,
                                            "layer_norm_bwd": 3 * 2 + 5,
+                                           "residual": 2 * 2,
+                                           "residual_bwd": 2,
                                            "l2_topk": 1, "l2_topk_rf": 0,
                                            "l2_topk_float": 0}
         results[dev] = (stats["loss"].item(), stats["grad_norm"].item(),
@@ -777,8 +784,9 @@ def test_small_token_model_trains_on_the_card_like_on_the_cpu(cuda):
                                            "attention_f32": 0,
                                            "attention_f32_bwd": 0,
                                            "layer_norm": 0,
-                                           "layer_norm_bwd": 0, "l2_topk": 0,
-                                           "l2_topk_rf": 2,
+                                           "layer_norm_bwd": 0,
+                                           "residual": 0, "residual_bwd": 0,
+                                           "l2_topk": 0, "l2_topk_rf": 2,
                                            "l2_topk_float": 0}
         results[dev] = (stats["loss"].item(), stats["grad_norm"].item(),
                         segs["rag_seg_h1"].cpu(),
@@ -1755,6 +1763,7 @@ def test_attention_f32_is_differentiable_through_the_kernels(cuda):
                                    "attention_f32": 1,
                                    "attention_f32_bwd": 1,
                                    "layer_norm": 0, "layer_norm_bwd": 0,
+                                   "residual": 0, "residual_bwd": 0,
                                    "l2_topk": 0, "l2_topk_rf": 0,
                                    "l2_topk_float": 0}
     want = _f32_plain(q, k, v, do, keep, F32_RATE)
@@ -1886,3 +1895,90 @@ def test_v18_published_imputes_on_the_card_like_on_the_cpu(cuda):
                       (on_card.hap2_prob, on_cpu.hap2_prob)):
         # float32 on both sides (TF32 off), sums in other orders
         assert np.abs(got[miss] - want[miss]).max() <= 1e-4
+
+
+RESIDUAL_EDGE_SHAPES = [(1, 1, 8), (3, 5, 64), (2, 257, 384), (5, 1030, 64),
+                        (2, 3, 4096), (4, 129, 1536)]
+
+
+def _residual_inputs(shape, cuda, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, f, g = ((torch.randn(shape, generator=gen, device=cuda) * 2).to(
+        torch.bfloat16) for _ in range(3))
+    keeps = [torch.rand(shape[0], 1, shape[2], generator=gen, device=cuda)
+             >= 0.1 for _ in range(2)]
+    return x, f, g, keeps
+
+
+@pytest.mark.parametrize("shape", RESIDUAL_EDGE_SHAPES)
+@pytest.mark.parametrize("n_masks", [0, 1, 2])
+@pytest.mark.parametrize("leaky", [False, True], ids=["identity", "leaky"])
+def test_residual_kernels_equal_the_chain(cuda, shape, n_masks, leaky):
+    from rag_snvbert_tpu_torch.ops.residual import residual, residual_plain
+
+    x, f, g, keeps = _residual_inputs(shape, cuda)
+    masks, rates = keeps[:n_masks], [0.1, 0.25][:n_masks]
+    xg, fg, xc, fc = (t.clone().requires_grad_() for t in (x, f, x, f))
+    ops.reset_launches()
+    y = residual(xg, fg, masks, rates, leaky)
+    got = torch.autograd.grad(y, (xg, fg), g)
+    y_chain = residual_plain(xc, fc, masks, rates, leaky)
+    want = torch.autograd.grad(y_chain, (xc, fc), g)
+    # the chain's roundings, in its order: bit for bit
+    assert torch.equal(y, y_chain)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+    assert ops.launch_counts()["residual"] == 1
+    assert ops.launch_counts()["residual_bwd"] == int(n_masks > 0 or leaky)
+
+
+def test_residual_replays_in_a_cuda_graph_like_eager(cuda):
+    from rag_snvbert_tpu_torch.ops.residual import residual
+
+    x, f, g, keeps = _residual_inputs((3, 130, 384), cuda)
+    x2, f2, g2, _ = _residual_inputs((3, 130, 384), cuda, seed=1)
+    xg, fg = x.clone().requires_grad_(), f.clone().requires_grad_()
+
+    def run():
+        y = residual(xg, fg, keeps, [0.1, 0.1], True)
+        return (y, *torch.autograd.grad(y, (xg, fg), g))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ops.launch_counts()
+    with torch.cuda.graph(graph):
+        captured = run()
+    after = ops.launch_counts()
+    assert after["residual"] == before["residual"] + 1
+    assert after["residual_bwd"] == before["residual_bwd"] + 1
+    with torch.no_grad():
+        xg.copy_(x2)
+        fg.copy_(f2)
+        g.copy_(g2)
+        keeps[0].logical_not_()
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = run()
+    for a, c in zip(captured, eager):
+        assert torch.equal(a, c)
+
+
+def test_residual_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    from rag_snvbert_tpu_torch.ops.residual import residual_bwd, residual_fwd
+
+    x, f, g, keeps = _residual_inputs((2, 3, 64), cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        residual_fwd(x, f.float())
+    with pytest.raises(ValueError, match="width"):
+        residual_fwd(x[..., :60].contiguous(), f[..., :60].contiguous())
+    with pytest.raises(ValueError, match="bool"):
+        residual_fwd(x, f, [keeps[0].expand(2, 3, 64).contiguous()], [0.1])
+    with pytest.raises(ValueError, match="contiguous"):
+        residual_fwd(x.transpose(0, 1).contiguous().transpose(0, 1), f)
+    with pytest.raises(ValueError, match="on cuda"):
+        residual_bwd(g, f, [keeps[0].cpu()], [0.1], True)

@@ -96,6 +96,7 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
                                    "attention_f32": 0,
                                    "attention_f32_bwd": 0,
                                    "layer_norm": 0, "layer_norm_bwd": 0,
+                                   "residual": 0, "residual_bwd": 0,
                                    "l2_topk": 0, "l2_topk_rf": 0,
                                    "l2_topk_float": 0}
 
